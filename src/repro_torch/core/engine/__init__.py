@@ -1,0 +1,34 @@
+"""Lane-batched simulation engine (port of `repro.core.engine`).
+
+The cycle is decomposed into explicit phases over a `SimState` of tensors
+with a leading lane dimension:
+
+    inject    packet generation + misroute decision + source-queue push
+    arbitrate routing, VC expansion, credit check, age-based grant
+    apply     pops / pushes / misroute clearing / serialization
+    stats     delivered / latency / hop accumulators
+
+`step.make_step` wires them into one cycle function; `step.run_scan` is
+the cycle loop; `sweep.BatchedSweep` runs a (rate x seed x fault) lane
+grid through it.  Only the oracle step (`step_impl="jnp"`) is ported.
+"""
+from .state import (SimState, SimStats, build_consts, build_lane,
+                    epoch_index, is_scheduled, lane_epoch, make_state,
+                    resolve_device, resolve_epoch, stack_lanes)
+from .arbitrate import Requests, make_arbitrate_fn
+from .inject import (make_inject_fn, make_misroute_fn, build_ugal_watch,
+                     ugal_queue_len)
+from .apply import make_apply_fn
+from .stats import accumulate, finalize, zero_stats
+from .step import make_step, run_scan
+from .sweep import BatchedSweep, LaneRun, SweepResult
+
+__all__ = [
+    "SimState", "SimStats", "Requests", "build_consts", "build_lane",
+    "epoch_index", "is_scheduled", "lane_epoch", "resolve_device",
+    "resolve_epoch", "make_state", "stack_lanes", "make_arbitrate_fn",
+    "make_inject_fn", "make_misroute_fn", "build_ugal_watch",
+    "ugal_queue_len", "make_apply_fn", "accumulate", "finalize",
+    "zero_stats", "make_step", "run_scan", "BatchedSweep", "LaneRun",
+    "SweepResult",
+]

@@ -1,0 +1,98 @@
+"""One simulated cycle, wired from the phase modules:
+
+    inject -> arbitrate (route + VC expansion + grant) -> apply -> stats
+
+Port of `repro.core.engine.step`.  `make_step` returns
+`step(state, (t, key, rate_pkt, fl)) -> (state, None)` over a state with a
+leading lane dimension ``B``: `key` is ``[B, 2]``, `rate_pkt` ``[B]``
+float32, and `fl` the lane-stacked fault data (``[B, ...]``; shared lanes
+are stride-0 views, see `routing.share_lanes`).  `t` is a host int.
+`run_scan` is the cycle loop that replaces the reference's `lax.scan`.
+"""
+from __future__ import annotations
+
+import torch
+
+from ... import random as jr
+from ..topology import Network
+from ..traffic import as_pattern
+from .apply import make_apply_fn
+from .arbitrate import make_arbitrate_fn
+from .inject import make_inject_fn
+from .state import (build_consts, resolve_device, resolve_epoch,
+                    resolve_reap_age)
+from .stats import accumulate, reap_mask, track_occ, zero_stats
+
+# the valid `cfg.step_impl` values (SimConfig validates against this);
+# only the oracle step "jnp" is ported so far
+STEP_IMPLS = ("jnp", "fused", "compact")
+
+
+def make_step(net: Network, cfg, pattern, inject_mask=None, *, device=None):
+    """Returns (step, consts); step(state, (t, key, rate_pkt, fl)) ->
+    (state, None).
+
+    With epoch-stacked lanes (`FaultSchedule`s) the step first selects
+    each lane's epoch in effect at cycle `t`."""
+    impl = getattr(cfg, "step_impl", "jnp")
+    if impl in ("fused", "compact"):
+        raise NotImplementedError(
+            f"step_impl={impl!r} is not ported to repro_torch yet "
+            f"(ROADMAP.md queue 1, item 7); use step_impl='jnp'")
+    if impl != "jnp":
+        raise ValueError(f"unknown step_impl {impl!r}; "
+                         f"valid: {STEP_IMPLS}")
+    device = resolve_device(device)
+    pattern, inject_mask = as_pattern(pattern, inject_mask)
+    consts, route_kernel = build_consts(net, cfg, device=device)
+    inject = make_inject_fn(net, cfg, consts, pattern, inject_mask)
+    arbitrate = make_arbitrate_fn(net, cfg, consts, route_kernel)
+    apply_moves = make_apply_fn(net, cfg, consts)
+    # router-death reaper (0 runs no reap logic at all)
+    reap_age = resolve_reap_age(cfg)
+
+    def step(state, t_key_rate_fl):
+        t, key, rate_pkt, fl = t_key_rate_fl
+        fl = resolve_epoch(fl, t)
+        state = inject(state, t, key, rate_pkt, fl)
+        stats = track_occ(state.stats, state)
+        req, win, won_ch = arbitrate(state, t, fl)
+        alive = fl["ch_alive"]
+        reap = (reap_mask(req, t, reap_age, alive)
+                if reap_age else None)
+        stats = accumulate(stats, req, win, consts, t, reap=reap,
+                           ch_alive=alive if reap_age else None)
+        state = apply_moves(state, req, win, won_ch, t, reap=reap)
+        return state.replace(stats=stats), None
+
+    return step, consts
+
+
+def _key_chain(key: torch.Tensor, cycles: int) -> torch.Tensor:
+    """The per-cycle subkeys of the lanes `key [..., 2]`:
+    ``key_{t+1}, sub_t = split(key_t)``, returned as ``[cycles, ..., 2]``.
+    The chain is drawn on the CPU (same bits as on the card, far fewer
+    device launches) and moved to `key`'s device once."""
+    k = key.cpu()
+    subs = []
+    for _ in range(cycles):
+        s = jr.split(k)
+        k, sub = s[..., 0, :], s[..., 1, :]
+        subs.append(sub)
+    if not subs:
+        return torch.empty((0,) + tuple(key.shape), dtype=key.dtype,
+                           device=key.device)
+    return torch.stack(subs).to(key.device)
+
+
+def run_scan(step, cycles: int, reset_at: int, state0, rate_pkt, key, fl):
+    """Advance the lanes `cycles` steps; stats are zeroed after cycle
+    `reset_at` (the end of warmup).  `key` is ``[B, 2]``: lane b draws
+    the reference's per-cycle subkey chain of its key."""
+    subs = _key_chain(key, cycles)
+    state = state0
+    for t in range(cycles):
+        state, _ = step(state, (t, subs[t], rate_pkt, fl))
+        if t == reset_at:
+            state = state.replace(stats=zero_stats(state.stats))
+    return state

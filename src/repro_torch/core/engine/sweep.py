@@ -1,0 +1,274 @@
+"""Batched load-latency sweeps: every (rate x seed x fault) lane advances
+in lockstep through one step, the lanes stacked on a leading dimension.
+
+Port of the single-device part of `repro.core.engine.sweep`:
+
+    sweep = BatchedSweep(net, cfg, pattern, device="cuda")
+    grid = sweep.run(rates=[0.2, 0.4, ...], seeds=(0, 1))
+    grid.result(i, j)            # SimResult for (rates[i], seeds[j])
+    grid.mean_over_seeds()       # list[SimResult], one per rate
+    grid.saturation_throughput() # scalar, seed-averaged
+
+Lane (i, j) reproduces the reference lane bit for bit: its key chain is
+the reference's and the lanes never mix.  The reference's AOT executable
+cache, lane/channel sharding over a device mesh, K-cycle supersteps, the
+compact step's capacity ladder and escalation, and windowed
+`LaneSession`s are not ported; `SweepResult` keeps their fields with
+their single-device values.
+"""
+from __future__ import annotations
+
+import time
+from dataclasses import dataclass
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from ... import random as jr
+from ..routing import share_lanes
+from ..topology import (FaultSchedule, FaultSet, Network, as_fault_schedule,
+                        compose_faults, final_faults)
+from ..traffic import as_pattern
+from .state import build_lane, make_state, resolve_device, stack_lanes
+from .stats import finalize, lane_stats
+# `_key_chain` lives with the cycle loop (`step.run_scan`) that draws it;
+# it is re-exported here, where the reference defines it
+from .step import _key_chain, make_step, run_scan  # noqa: F401
+
+
+def offered_to_rate_pkt(offered_per_chip: float, cfg,
+                        terms_per_chip: float) -> float:
+    """Offered flits/cycle/chip -> per-terminal packet-generation rate;
+    raises when the load needs more than one packet per terminal per
+    cycle."""
+    rate = offered_per_chip / cfg.pkt_len / terms_per_chip
+    if rate > 1.0 + 1e-9:
+        raise ValueError(
+            f"offered {offered_per_chip}/chip needs per-terminal packet "
+            f"rate {rate:.2f} > 1")
+    return rate
+
+
+class LaneRun(NamedTuple):
+    """The outcome of one `run_lanes` dispatch."""
+
+    results: list          # one SimResult per lane, in lane order
+    wall_s: float          # execution wall time (device synchronised)
+    compile_s: float       # always 0.0: eager PyTorch compiles nothing
+    compile_count: int     # step functions the grid ran through (1)
+    fault_sets: list       # composed per-lane fault states (None=pristine)
+    placement: str = "single"
+    pad_fraction: float = 0.0
+    grant_form: str = "two_pass"
+    occupancy_peak: int = 0     # max live request rows over the lanes
+    compact_capacity: int = 0
+    superstep: int = 1
+    escalations: int = 0
+    escalation_compiles: int = 0
+
+
+@dataclass
+class SweepResult:
+    """SimResults on the (rate x seed) grid, plus curve-level reductions.
+
+    For fault sweeps (`BatchedSweep.run_faults`) the row axis is the fault
+    grid: `rates[i]` repeats the common offered load and `fault_fracs[i]`
+    labels row i with its failed-link fraction.  Fields with no meaning
+    in the eager single-device port keep the reference's single-device
+    values (`placement="single"`, `grant_form="two_pass"`, ...), and
+    `compile_count` counts the step functions the dispatch ran (1)."""
+
+    rates: list[float]
+    seeds: list[int]
+    results: list[list]        # [num_rates][num_seeds] of SimResult
+    compile_count: int = 0
+    wall_s: float = 0.0
+    compile_s: float = 0.0
+    fault_fracs: list | None = None
+    placement: str = "single"
+    pad_fraction: float = 0.0
+    grant_form: str = "two_pass"
+    occupancy_peak: int = 0
+    compact_capacity: int = 0
+    superstep: int = 1
+    escalations: int = 0
+    escalation_compiles: int = 0
+
+    def result(self, rate_idx: int, seed_idx: int = 0):
+        return self.results[rate_idx][seed_idx]
+
+    def flat(self):
+        return [r for row in self.results for r in row]
+
+    def mean_over_seeds(self) -> list:
+        """One seed-averaged SimResult per rate: means of rates/latencies,
+        floor-averaged packet counters, and the exact per-lane MAX of the
+        `stranded_pkts` gauge (with its exact mean in `stranded_mean`)
+        and of `occupancy_peak`."""
+        from ..simulator import SimResult
+        out = []
+        for row in self.results:
+            n = len(row)
+            hops = {k: sum(r.hops_by_type[k] for r in row) // n
+                    for k in row[0].hops_by_type}
+            avg_hops = {k: float(np.mean([r.avg_hops_by_type[k] for r in row]))
+                        for k in row[0].avg_hops_by_type}
+            out.append(SimResult(
+                offered_per_chip=row[0].offered_per_chip,
+                throughput_per_chip=float(
+                    np.mean([r.throughput_per_chip for r in row])),
+                avg_latency=float(np.mean([r.avg_latency for r in row])),
+                delivered_pkts=sum(r.delivered_pkts for r in row) // n,
+                generated_pkts=sum(r.generated_pkts for r in row) // n,
+                dropped_pkts=sum(r.dropped_pkts for r in row) // n,
+                hops_by_type=hops, avg_hops_by_type=avg_hops,
+                stranded_pkts=max(r.stranded_pkts for r in row),
+                stranded_mean=float(
+                    np.mean([r.stranded_pkts for r in row])),
+                reaped_pkts=sum(r.reaped_pkts for r in row) // n,
+                occupancy_peak=max(r.occupancy_peak for r in row)))
+        return out
+
+    def saturation_throughput(self) -> float:
+        """Max seed-averaged accepted throughput over the sweep."""
+        return max(r.throughput_per_chip for r in self.mean_over_seeds())
+
+
+class BatchedSweep:
+    """Sweep runner over an arbitrary lane grid: one step serves every
+    (rate, seed, fault) lane.  `faults` degrades every lane with one fault
+    state; `run_faults` runs a grid of different fault states together."""
+
+    def __init__(self, net: Network, cfg, pattern, inject_mask=None,
+                 step=None, consts=None, faults: FaultSet | None = None,
+                 lane=None, *, device=None):
+        self.net, self.cfg = net, cfg
+        self.device = resolve_device(device)
+        pattern = as_pattern(pattern, inject_mask)
+        if step is None:
+            step, consts = make_step(net, cfg, pattern, device=self.device)
+        self.step, self.consts = step, consts
+        self.NV = consts["NV"]
+        self.faults = faults
+        self.lane0 = (build_lane(net, cfg, faults, device=self.device)
+                      if lane is None else lane)
+        self.terms_per_chip = net.num_terminals / net.num_chips
+        self._inj_mask = (np.ones(net.num_terminals, dtype=bool)
+                          if pattern.inject_mask is None
+                          else np.asarray(pattern.inject_mask).astype(bool))
+
+    def _rate_pkt(self, offered_per_chip: float) -> float:
+        return offered_to_rate_pkt(offered_per_chip, self.cfg,
+                                   self.terms_per_chip)
+
+    def _chips(self, faults) -> float:
+        """Accepted-throughput divisor: chips weighted by the fraction of
+        terminals that inject (mask AND alive); a schedule reports its
+        FINAL epoch."""
+        faults = final_faults(faults)
+        alive = (self._inj_mask if faults is None
+                 else self._inj_mask & faults.term_alive(self.net))
+        return self.net.num_chips * alive.sum() / self.net.num_terminals
+
+    def _prepare_lanes(self, lanes):
+        """Compose per-lane fault data; returns the lane rates ``[B]``,
+        keys ``[B, 2]``, the lane-stacked fault dict and the composed fault
+        states.  When any lane is warm (a `FaultSchedule`) every lane is
+        promoted to a schedule so all lanes share one epoch-stacked
+        structure; when every lane has one fault state it is shared
+        (stride-0 views) instead of stacked."""
+        cfg = self.cfg
+        lanes = list(lanes)
+        if not lanes:
+            raise ValueError("run_lanes needs >= 1 lane")
+        base = self.faults
+        fsets = [compose_faults(base, f) for _, _, f in lanes]
+        if any(isinstance(f, FaultSchedule) for f in fsets):
+            fsets = [as_fault_schedule(f) for f in fsets]
+        rates = torch.tensor([self._rate_pkt(r) for r, _, _ in lanes],
+                             dtype=torch.float32, device=self.device)
+        keys = torch.stack([jr.PRNGKey(int(s)) for _, s, _ in lanes])
+        B = len(lanes)
+        if len(set(fsets)) == 1:
+            fl = (self.lane0 if fsets[0] == base
+                  else build_lane(self.net, cfg, fsets[0],
+                                  device=self.device))
+            lane_data = share_lanes(fl, B)
+        else:
+            # FaultSet is frozen/hashable: build each distinct lane once
+            memo = {}
+            for f in fsets:
+                if f not in memo:
+                    memo[f] = build_lane(self.net, cfg, f,
+                                         device=self.device)
+            lane_data = stack_lanes([memo[f] for f in fsets])
+        return lanes, rates, keys, lane_data, fsets
+
+    def run_lanes(self, lanes) -> LaneRun:
+        """One batched run over a list of `(offered_per_chip, seed, faults)`
+        lane triples, where `faults` is a `FaultSet`, a warm
+        `FaultSchedule`, or None; each composes on top of the sweep's base
+        `faults`.  Returns a `LaneRun` (one `SimResult` per lane, in
+        order)."""
+        lanes, rates, keys, lane_data, fsets = self._prepare_lanes(lanes)
+        cfg = self.cfg
+        B = len(lanes)
+        state0 = make_state(self.net, cfg, self.NV, batch=(B,),
+                            device=self.device)
+        t0 = time.perf_counter()
+        state = run_scan(self.step, cfg.warmup + cfg.measure, cfg.warmup,
+                         state0, rates, keys.to(self.device), lane_data)
+        stats = type(state.stats)(**{k: v.cpu()
+                                     for k, v in vars(state.stats).items()})
+        wall = time.perf_counter() - t0
+        results = [finalize(lane_stats(stats, i), cfg, lanes[i][0],
+                            self._chips(fsets[i])) for i in range(B)]
+        return LaneRun(results, wall, 0.0, 1, fsets,
+                       occupancy_peak=int(stats.occ_peak.max()))
+
+    def run(self, rates, seeds=None) -> SweepResult:
+        cfg = self.cfg
+        rates = [float(r) for r in rates]
+        seeds = [cfg.seed] if seeds is None else [int(s) for s in seeds]
+        R, S = len(rates), len(seeds)
+        if R * S == 0:
+            raise ValueError(
+                f"sweep needs >= 1 rate and >= 1 seed (got {R} rates, "
+                f"{S} seeds)")
+        run = self.run_lanes([(r, s, None) for r in rates for s in seeds])
+        flat = run.results
+        results = [[flat[i * S + j] for j in range(S)] for i in range(R)]
+        return SweepResult(rates=rates, seeds=seeds, results=results,
+                           compile_count=run.compile_count,
+                           wall_s=run.wall_s, compile_s=run.compile_s,
+                           occupancy_peak=run.occupancy_peak)
+
+    def run_faults(self, offered_per_chip: float, fault_grid,
+                   seeds=None) -> SweepResult:
+        """Degraded-throughput grid: one lane per (fault set, seed), all at
+        the same offered load.  Row i of `fault_grid` is one `FaultSet` /
+        `FaultSchedule` shared by every seed, or a per-seed list; entries
+        compose on top of the sweep's base faults."""
+        cfg = self.cfg
+        seeds = [cfg.seed] if seeds is None else [int(s) for s in seeds]
+        S = len(seeds)
+        rows = [list(fs) if isinstance(fs, (list, tuple)) else [fs] * S
+                for fs in fault_grid]
+        if not rows or any(len(r) != S for r in rows):
+            raise ValueError("fault_grid rows must match the seed count")
+        F = len(rows)
+        run = self.run_lanes(
+            [(offered_per_chip, seeds[j], rows[i][j])
+             for i in range(F) for j in range(S)])
+        flat, fsets = run.results, run.fault_sets
+        results = [[flat[i * S + j] for j in range(S)] for i in range(F)]
+        fracs = [float(np.mean(
+            [0.0 if f is None
+             else final_faults(f).frac_links_failed(self.net)
+             for f in fsets[i * S:(i + 1) * S]])) for i in range(F)]
+        return SweepResult(rates=[offered_per_chip] * F, seeds=seeds,
+                           results=results, compile_count=run.compile_count,
+                           wall_s=run.wall_s, compile_s=run.compile_s,
+                           fault_fracs=fracs,
+                           occupancy_peak=run.occupancy_peak)

@@ -1,0 +1,70 @@
+"""Tests of the port that need the card (marker `cuda`; they skip where
+`torch.cuda.is_available()` is false, since a CUDA kernel has no CPU mode).
+
+The file imports neither jax nor the reference package, so it runs on the
+machine with the card, where JAX is not installed (`tests/conftest.py`
+imports jax, hence `--noconftest`):
+
+    PYTHONPATH=src python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py
+"""
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core import topology as T
+from repro_torch.core import traffic
+from repro_torch.core.simulator import SimConfig, Simulator
+from repro_torch.kernels.netsim import grant, grant_ref
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    return torch.device("cuda")
+
+
+def _random_inputs(rng, B, N, E, device):
+    cols = [rng.integers(-1, E, (B, N)).astype(np.int32),
+            rng.integers(0, 4, (B, N)).astype(np.int32),
+            rng.random((B, N)) < 0.8,
+            rng.integers(0, 10, (B, N)).astype(np.int32),
+            rng.random((B, N)) < 0.2,
+            (rng.integers(0, 3, (B, E))
+             * (rng.random((B, E)) < 0.3)).astype(np.int32),
+            rng.random((B, E)) < 0.9]
+    return [torch.as_tensor(c).to(device) for c in cols]
+
+
+@pytest.mark.parametrize("B,N,E", [(1, 1, 1), (1, 1000, 301),
+                                   (4, 20011, 1029)])
+def test_grant_kernel_matches_plain_version(cuda, B, N, E):
+    args = _random_inputs(np.random.default_rng(N), B, N, E, cuda)
+    before = grant.launches
+    got = grant(*args, buf_pkts=8)
+    torch.cuda.synchronize()
+    assert grant.launches == before + 1
+    want = grant_ref(*args, buf_pkts=8)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    # one lane equals the same lane run alone, shared channel masks too
+    alive = args[6][:1].expand(B, E)
+    got = grant(*args[:6], alive, buf_pkts=8)
+    for b in range(B):
+        one = grant(*(x[b] for x in args[:6]), alive[b], buf_pkts=8)
+        assert torch.equal(one[0], got[0][b]) and torch.equal(one[1],
+                                                              got[1][b])
+
+
+def test_simulator_on_card_equals_cpu(cuda):
+    net = T.build_switchless(
+        T.SwitchlessParams(a=2, b=2, m=2, n=4, noc=2, g=3), "small")
+    cfg = SimConfig(warmup=30, measure=120, vc_mode="updown",
+                    route_mode="ugal")
+    grids = [Simulator(net, cfg, traffic.uniform(net), device=d)
+             .sweep_grid([0.3, 1.2], seeds=(0, 1)) for d in (cuda, "cpu")]
+    a, b = ([dataclasses.asdict(r) for r in g.flat()] for g in grids)
+    assert a == b
