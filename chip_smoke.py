@@ -10,16 +10,29 @@ Phases (any failure ends the run with a nonzero exit):
    the build of every CUDA kernel of the path from this checkout's sources;
 2. the PRNG on the card: Threefry-2x32 known answers, and split / uniform /
    randint / bernoulli on CUDA equal to the same calls on the CPU;
-3. the grant kernel against its plain PyTorch version on the card, bit for
-   bit: (a) random inputs with stranded rows and ties, (b) the live engine
-   states of the first cycles of phase 4's run;
-4. the main path: `Simulator.sweep_grid` on the paper's radix-16
-   evaluation network (g = 41: 1,312 chips, 30,176 channels) at 2 rates x
-   2 seeds = 4 lanes, with the grant launch count, exact packet
-   conservation on every lane, and accepted = offered load at 0.1;
+3. each kernel against its plain PyTorch version on the card, bit for bit,
+   and its time at the main path's shapes:
+   - grant: (a) random inputs with stranded rows and ties, (b) the live
+     engine states of the first cycles of phase 4's run;
+   - cycle_core: (a) random inputs (lanes, stranded rows, ties, an
+     explicit priority, ages where the reference's int32 key overflows —
+     there held to the two-pass `fused._grant` too), (b) the live states of
+     the first cycles of phase 4's fused and compact runs, (c) timing at
+     both steps' shapes;
+4. the main path on the paper's radix-16 evaluation network (g = 41:
+   1,312 chips, 30,176 channels), 2 rates x 2 seeds = 4 lanes through
+   `Simulator.sweep_grid`, once per cycle step:
+   - the oracle (`step_impl="jnp"`) at offered 0.1 and 0.4, with accepted
+     = offered load at 0.1;
+   - the fused and the compact step at offered 0.4 and 1.0 (Fig. 11's
+     uniform-traffic loads), equal to each other on every lane and to the
+     oracle on the 0.4 lanes;
+   each with its kernel launch counts and exact packet conservation on
+   every lane;
 5. the port on the card against the port on the CPU on a small network,
-   field for field, across routing modes, cold and warm faults and the
-   reaper.
+   field for field, for all three steps across routing modes, cold and
+   warm faults and the reaper, plus a compact run pinned below its live
+   peak, which must escalate.
 
 Then one JSON line of kernel numbers, the card's name and power limit, and
 the final status line.  Exits nonzero, printing no result, without a CUDA
@@ -42,6 +55,8 @@ sys.path.insert(0, str(ROOT / "src"))
 
 H100_BYTES_PER_S = 3.35e12      # HBM3 of the H100 SXM (NVIDIA data sheet)
 FULL_RATES, FULL_SEEDS = (0.1, 0.4), (0, 1)
+FAST_RATES = (0.4, 1.0)
+FAST_STEPS = ("fused", "compact")
 FULL_CFG = dict(warmup=300, measure=1200)
 LIVE_CYCLES = 50
 
@@ -80,10 +95,11 @@ def phase_build():
     t0 = time.perf_counter()
     ops.library()
     rec = build.build_record(ops.LIBRARY)
-    print(f"[build] netsim grant kernel: nvcc {rec['seconds']:.2f} s "
+    print(f"[build] netsim kernels ({', '.join(p.name for p in ops.SOURCES)}"
+          f"): nvcc {rec['seconds']:.2f} s "
           f"(load {time.perf_counter() - t0:.2f} s)")
     for line in rec["report"].splitlines():
-        if "registers" in line or "spill" in line:
+        if any(w in line for w in ("entry function", "registers", "spill")):
             print(f"[build]   {line.strip()}")
 
 
@@ -227,25 +243,195 @@ def phase_grant_timing(args, buf_pkts):
     return ms, plain_ms, bound_ms
 
 
+def _cycle_err(got, want):
+    """Max |kernel - plain| over (won, wprio, win), as integers."""
+    return max(int((g.long() - w.long()).abs().max()) if g.numel() else 0
+               for g, w in zip(got, want))
+
+
+def _random_cycle_inputs(rng, B, N, E, itime_lo, explicit_prio, device):
+    import torch
+    out = rng.integers(-1, E, (B, N)).astype(np.int32)
+    itime = rng.integers(itime_lo, itime_lo + 6, (B, N)).astype(np.int32)
+    ok = rng.random((B, N)) < 0.7
+    ch_ok = rng.random((B, E)) < 0.8
+    r2 = 1 << (4 * N - 1).bit_length()
+    prio = (np.stack([rng.permutation(r2)[:N] for _ in range(B)])
+            .astype(np.int32) if explicit_prio else None)
+    t = lambda x: None if x is None else torch.as_tensor(x).to(device)
+    return [t(x) for x in (out, itime, ok, ch_ok)], t(prio), r2
+
+
+def phase_cycle_core_random(device):
+    """Kernel == plain version on random inputs; where the reference's
+    packed int32 key would overflow, also == the two-pass `_grant`."""
+    import torch
+    from repro_torch.core.engine.fused import _grant
+    from repro_torch.kernels.netsim import cycle_core, cycle_core_ref
+    rng = np.random.default_rng(1)
+    err = 0
+    for B, N, E in [(1, 1, 1), (1, 4099, 291), (4, 204673, 30177),
+                    (4, 51169, 30177), (1, 100003, 1029)]:
+        for explicit_prio in (False, True):
+            for itime_lo in (0, 2**31 - 8):
+                args, prio, r2 = _random_cycle_inputs(
+                    rng, B, N, E, itime_lo, explicit_prio, device)
+                got = cycle_core(*args, r2=r2, prio=prio)
+                err = max(err, _cycle_err(
+                    got, cycle_core_ref(*args, r2=r2, prio=prio)))
+                if itime_lo:
+                    out, itime, ok, ch_ok = args
+                    p = (torch.arange(N, dtype=torch.int32, device=device)
+                         .expand(B, N) if prio is None else prio)
+                    ok = ok & (out >= 0)
+                    won, wprio = _grant(ok, out, itime, p, ch_ok, E, r2,
+                                        False)
+                    err = max(err, _cycle_err(got[:2], (won, wprio)))
+    check(err == 0, f"cycle_core kernel != plain versions on random "
+                    f"inputs ({err})")
+    print("[cycle_core] random inputs (B in {1,4}, E in {1,291,30177,1029}, "
+          "prio none/explicit, itime near 2^31): kernel == cycle_core_ref "
+          "== two-pass _grant")
+    return err
+
+
+def fast_cfg(impl):
+    from repro_torch.core.simulator import SimConfig
+    return SimConfig(**FULL_CFG, step_impl=impl)
+
+
+def phase_cycle_core_live(net, device, impl, cycles=LIVE_CYCLES):
+    """Kernel vs plain version on the live states of the first `cycles`
+    cycles of the `impl` step's main-path lanes: every call the step makes
+    is checked (`ops.cycle_core` is wrapped for this phase only).  Returns
+    (max error, the last call's arguments)."""
+    import torch
+    from repro_torch import random as jr
+    from repro_torch.core import traffic
+    from repro_torch.core.engine import build_lane, make_state, make_step
+    from repro_torch.core.engine.step import run_scan
+    from repro_torch.core.engine.sweep import offered_to_rate_pkt
+    from repro_torch.core.routing import share_lanes
+    from repro_torch.kernels.netsim import ops
+    cfg = fast_cfg(impl)
+    lanes = [(r, s) for r in FAST_RATES for s in FULL_SEEDS]
+    B = len(lanes)
+    tpc = net.num_terminals / net.num_chips
+    rates = torch.tensor([offered_to_rate_pkt(r, cfg, tpc) for r, _ in lanes],
+                         dtype=torch.float32, device=device)
+    keys = torch.stack([jr.PRNGKey(s) for _, s in lanes]).to(device)
+    step, consts = make_step(net, cfg, traffic.uniform(net), device=device)
+    fl = share_lanes(build_lane(net, cfg, None, device=device), B)
+    state = make_state(net, cfg, consts["NV"], batch=(B,), device=device)
+    real = ops.cycle_core
+    seen = dict(err=0, won=0, calls=0, last=None)
+
+    def checked(*args, **kw):
+        got = real(*args, **kw)
+        seen["err"] = max(seen["err"],
+                          _cycle_err(got, ops.cycle_core_ref(*args, **kw)))
+        seen["won"] += int(got[0].sum())
+        seen["calls"] += 1
+        seen["last"] = (args, kw)
+        return got
+
+    # the wrapper counts its launches on whatever `ops.cycle_core` names,
+    # so this phase's launches land on `checked` and are not counted
+    checked.launches = 0
+    ops.cycle_core = checked
+    try:
+        run_scan(step, cycles, -1, state, rates, keys, fl)
+    finally:
+        ops.cycle_core = real
+    check(seen["calls"] == cycles, f"{impl}: {seen['calls']} cycle_core "
+                                   f"calls in {cycles} cycles")
+    check(seen["err"] == 0, f"cycle_core kernel != cycle_core_ref on live "
+                            f"{impl} states ({seen['err']})")
+    check(seen["won"] > 0, f"live {impl} states granted nothing")
+    args, kw = seen["last"]
+    print(f"[cycle_core] live full-width {impl} states, {cycles} cycles x "
+          f"{B} lanes (N = {args[0].shape[1]} rows, E = {args[3].shape[1]} "
+          f"channels, {seen['won']} grants): kernel == cycle_core_ref")
+    return seen["err"], seen["last"]
+
+
+def cycle_core_bytes(args, kw) -> int:
+    """Bytes `cycle_core` must move: each input read once (out, itime,
+    ok, the optional prio, ch_ok), each output written once (won 1 byte
+    and wprio 4 bytes a channel, win 1 byte a row)."""
+    rows = list(args[:3]) + ([kw["prio"]] if kw.get("prio") is not None
+                             else [])
+    ch_ok = args[3]
+    total = sum(x.numel() * x.element_size() for x in rows)
+    total += (ch_ok[0] if ch_ok.stride(0) == 0 else ch_ok).numel()
+    return total + ch_ok.numel() * 5 + args[0].numel()
+
+
+def phase_cycle_core_timing(impl, args, kw):
+    from repro_torch.kernels.netsim import cycle_core, cycle_core_ref
+    ms = cuda_ms(lambda: cycle_core(*args, **kw), 200)
+    plain_ms = cuda_ms(lambda: cycle_core_ref(*args, **kw), 50)
+    nbytes = cycle_core_bytes(args, kw)
+    bound_ms = nbytes / H100_BYTES_PER_S * 1e3
+    print(f"[cycle_core] {impl} shapes B={args[0].shape[0]} "
+          f"N={args[0].shape[1]} E={args[3].shape[1]}: kernel "
+          f"{ms * 1e3:.2f} us/launch, plain {plain_ms * 1e3:.2f} us, bound "
+          f"{bound_ms * 1e3:.2f} us ({nbytes} bytes at 3.35 TB/s)")
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms)
+
+
 class ConservationProbe:
-    """Wraps a step and records each lane's in-flight packets right after
-    the warmup cycle and after the last cycle, so measured counters can be
-    held to ``generated == delivered + dropped + reaped + in-flight``."""
+    """Wraps every step a sweep runs (its own and, for the compact step,
+    each escalation rung's) and records each lane's in-flight packets
+    right after the warmup cycle and after the last cycle of the latest
+    run, so measured counters can be held to
+    ``generated == delivered + dropped + reaped + in-flight``."""
 
-    def __init__(self, step, warmup, last):
-        self.step, self.warmup, self.last = step, warmup, last
+    def __init__(self, sweep, warmup, last):
+        self.warmup, self.last = warmup, last
         self.inflight = {}
+        sweep.step = self.wrap(sweep.step)
+        make_rung = sweep._compact_step
+        sweep._compact_step = lambda C: self.wrap(make_rung(C))
 
-    def __call__(self, state, t_key_rate_fl):
-        state, aux = self.step(state, t_key_rate_fl)
-        t = t_key_rate_fl[0]
-        if t in (self.warmup, self.last):
-            self.inflight[t] = (state.b_count.sum((1, 2))
-                                + state.s_count.sum(1)).cpu()
-        return state, aux
+    def wrap(self, step):
+        def probed(state, t_key_rate_fl):
+            state, aux = step(state, t_key_rate_fl)
+            t = t_key_rate_fl[0]
+            if t in (self.warmup, self.last):
+                self.inflight[t] = (state.b_count.sum((1, 2))
+                                    + state.s_count.sum(1)).cpu()
+            return state, aux
+        for name in ("compact_capacity", "compact_rows"):
+            if hasattr(step, name):
+                setattr(probed, name, getattr(step, name))
+        return probed
+
+    def check_lanes(self, grid, tag):
+        """Exact conservation on every lane of `grid`; prints each lane."""
+        grown = self.inflight[self.last] - self.inflight[self.warmup]
+        for i, r in enumerate(grid.flat()):
+            print(f"[{tag}]   offered {r.offered_per_chip:.2f} seed "
+                  f"{grid.seeds[i % len(grid.seeds)]}: throughput "
+                  f"{r.throughput_per_chip:.6f} latency {r.avg_latency:.4f} "
+                  f"delivered {r.delivered_pkts} generated "
+                  f"{r.generated_pkts} dropped {r.dropped_pkts} reaped "
+                  f"{r.reaped_pkts} stranded {r.stranded_pkts} occupancy "
+                  f"{r.occupancy_peak} in-flight "
+                  f"{int(self.inflight[self.last][i])}")
+            check(r.generated_pkts == r.delivered_pkts + r.dropped_pkts
+                  + r.reaped_pkts + int(grown[i]),
+                  f"{tag}: conservation on lane {i}")
+
+
+def _reset_launches():
+    from repro_torch.kernels.netsim import ops
+    ops.grant.launches = ops.cycle_core.launches = 0
 
 
 def phase_main_path(net, device):
+    """The oracle step at offered 0.1 and 0.4; returns (grant launches,
+    the grid)."""
     import torch
     from repro_torch.core import traffic
     from repro_torch.core.simulator import SimConfig, Simulator
@@ -254,45 +440,93 @@ def phase_main_path(net, device):
     cycles = cfg.warmup + cfg.measure
     t0 = time.perf_counter()
     sim = Simulator(net, cfg, traffic.uniform(net), device=device)
-    probe = ConservationProbe(sim._batched.step, cfg.warmup, cycles - 1)
-    sim._batched.step = probe
+    probe = ConservationProbe(sim._batched, cfg.warmup, cycles - 1)
     setup_s = time.perf_counter() - t0
     torch.cuda.reset_peak_memory_stats()
-    ops.grant.launches = 0
+    _reset_launches()
     t0 = time.perf_counter()
     grid = sim.sweep_grid(list(FULL_RATES), seeds=FULL_SEEDS)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = ops.grant.launches
+    launches, other = ops.grant.launches, ops.cycle_core.launches
     lanes = len(FULL_RATES) * len(FULL_SEEDS)
     print(f"[main] radix-16 g=41: {net.num_chips} chips, "
           f"{net.num_channels} channels, {lanes} lanes x {cycles} cycles "
-          f"(set-up {setup_s:.2f} s)")
-    grown = probe.inflight[cycles - 1] - probe.inflight[cfg.warmup]
-    for i, r in enumerate(grid.flat()):
-        print(f"[main]   offered {r.offered_per_chip:.2f} seed "
-              f"{FULL_SEEDS[i % len(FULL_SEEDS)]}: throughput "
-              f"{r.throughput_per_chip:.6f} latency {r.avg_latency:.4f} "
-              f"delivered {r.delivered_pkts} generated {r.generated_pkts} "
-              f"dropped {r.dropped_pkts} reaped {r.reaped_pkts} stranded "
-              f"{r.stranded_pkts} in-flight {int(probe.inflight[cycles - 1][i])}")
-        check(r.generated_pkts == r.delivered_pkts + r.dropped_pkts
-              + r.reaped_pkts + int(grown[i]),
-              f"conservation on lane {i}")
+          f"(set-up {setup_s:.2f} s), step jnp")
+    probe.check_lanes(grid, "main")
+    for r in grid.flat():
         if r.offered_per_chip == 0.1:
             check(abs(r.throughput_per_chip - 0.1) <= 0.005,
                   f"accepted {r.throughput_per_chip} != offered 0.1")
     check(launches == cycles,
           f"grant launches {launches} != cycles run {cycles}")
+    check(other == 0, f"the oracle step launched cycle_core {other} times")
     print(f"[main] wall {wall:.3f} s: {cycles / wall:.2f} cycles/s, "
           f"{lanes * cycles / wall:.2f} lane-cycles/s; grant launches "
           f"{launches}; max_memory_allocated "
           f"{torch.cuda.max_memory_allocated()} bytes")
-    return launches
+    return launches, grid
 
 
-def phase_profile(net, device, cycles=20):
-    """torch.profiler over a short steady window of the main path's step."""
+def phase_fast_path(net, device, impl):
+    """One fast step at offered 0.4 and 1.0; returns (cycle_core
+    launches, the grid)."""
+    import torch
+    from repro_torch.core import traffic
+    from repro_torch.core.simulator import Simulator
+    from repro_torch.kernels.netsim import ops
+    cfg = fast_cfg(impl)
+    cycles = cfg.warmup + cfg.measure
+    t0 = time.perf_counter()
+    sim = Simulator(net, cfg, traffic.uniform(net), device=device)
+    probe = ConservationProbe(sim._batched, cfg.warmup, cycles - 1)
+    setup_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launches()
+    t0 = time.perf_counter()
+    grid = sim.sweep_grid(list(FAST_RATES), seeds=FULL_SEEDS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, other = ops.cycle_core.launches, ops.grant.launches
+    lanes = len(FAST_RATES) * len(FULL_SEEDS)
+    runs = 1 + grid.escalations
+    print(f"[{impl}] radix-16 g=41: {lanes} lanes x {cycles} cycles "
+          f"(set-up {setup_s:.2f} s), step {impl}: grant_form "
+          f"{grid.grant_form}, compact_capacity {grid.compact_capacity}, "
+          f"occupancy_peak {grid.occupancy_peak}, escalations "
+          f"{grid.escalations}")
+    probe.check_lanes(grid, impl)
+    check(launches == cycles * runs,
+          f"{impl}: cycle_core launches {launches} != cycles x runs "
+          f"{cycles} x {runs}")
+    check(other == 0, f"the {impl} step launched grant {other} times")
+    print(f"[{impl}] wall {wall:.3f} s ({runs} run(s)): "
+          f"{cycles * runs / wall:.2f} cycles/s, "
+          f"{lanes * cycles * runs / wall:.2f} lane-cycles/s; cycle_core "
+          f"launches {launches}; max_memory_allocated "
+          f"{torch.cuda.max_memory_allocated()} bytes")
+    return launches, grid
+
+
+def check_fast_grids(oracle, grids):
+    """fused == compact on every lane; their 0.4 lanes == the oracle's."""
+    rows = {k: [dataclasses.asdict(r) for r in g.flat()]
+            for k, g in grids.items()}
+    check(rows["fused"] == rows["compact"],
+          "fused != compact at full width")
+    S = len(FULL_SEEDS)
+    i_fast, i_oracle = FAST_RATES.index(0.4), FULL_RATES.index(0.4)
+    for j in range(S):
+        check(dataclasses.asdict(grids["fused"].result(i_fast, j))
+              == dataclasses.asdict(oracle.result(i_oracle, j)),
+              f"fused != oracle at offered 0.4, seed {FULL_SEEDS[j]}")
+    print(f"[main] fused == compact on all {len(rows['fused'])} lanes; "
+          f"their 0.4 lanes == the oracle's, field for field")
+
+
+def phase_profile(net, device, impl, cycles=20):
+    """torch.profiler over a short steady window of one main-path step
+    (offered 0.4 on every lane)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch import random as jr
@@ -300,8 +534,7 @@ def phase_profile(net, device, cycles=20):
     from repro_torch.core.engine import build_lane, make_state, make_step
     from repro_torch.core.engine.step import run_scan
     from repro_torch.core.routing import share_lanes
-    from repro_torch.core.simulator import SimConfig
-    cfg = SimConfig(**FULL_CFG)
+    cfg = fast_cfg(impl)
     step, consts = make_step(net, cfg, traffic.uniform(net), device=device)
     B = len(FULL_RATES) * len(FULL_SEEDS)
     fl = share_lanes(build_lane(net, cfg, None, device=device), B)
@@ -323,21 +556,23 @@ def phase_profile(net, device, cycles=20):
     kernels = [e for e in events if getattr(e, attr) > 0
                and e.device_type == torch.autograd.DeviceType.CUDA]
     dev = sum(getattr(e, attr) for e in kernels) / 1e3            # ms
-    print(f"[profile] {cycles} cycles: wall {wall * 1e3:.1f} ms, device "
-          f"busy {dev:.1f} ms ({100 * dev / (wall * 1e3):.1f}%), "
+    print(f"[profile] {impl}, {cycles} cycles: wall {wall * 1e3:.1f} ms, "
+          f"device busy {dev:.1f} ms ({100 * dev / (wall * 1e3):.1f}%), "
           f"{sum(e.count for e in kernels) / cycles:.0f} kernels per cycle")
     for e in kernels:
-        if "grant" in e.key:
+        if "grant" in e.key or "cycle_" in e.key:
             print(f"[profile]   {e.key}: {getattr(e, attr) / e.count:.2f} us "
                   f"device time per launch, {e.count} launches")
-    print(events.table(sort_by=attr, row_limit=20))
+    print(events.table(sort_by=attr, row_limit=12))
 
 
 SMALL = dict(a=2, b=2, m=2, n=4, noc=2, g=3)
 
 
 def phase_small_parity(device):
-    """The port on `device` against the port on the CPU, field for field."""
+    """The port on `device` against the port on the CPU, field for field,
+    for every cycle step; then a compact run pinned below its live peak
+    escalates identically on both."""
     from repro_torch.core import topology as T
     from repro_torch.core import traffic
     from repro_torch.core.simulator import SimConfig, Simulator
@@ -359,20 +594,43 @@ def phase_small_parity(device):
          lambda s: s.sweep_faults(0.8, [T.FaultSchedule(
              ((0, T.FaultSet()), (60, dead)))], (0, 1))),
     ]
-    for name, over, run in cases:
-        cfg = SimConfig(**cyc, **over)
-        got = [run(Simulator(net, cfg, traffic.uniform(net), device=d))
-               for d in (device, "cpu")]
-        a, b = ([dataclasses.asdict(r) for r in g.flat()] for g in got)
-        check(a == b, f"small-net parity {name}: CUDA != CPU")
-        print(f"[parity] {name}: {len(a)} lanes, CUDA == CPU "
-              f"(delivered {[r['delivered_pkts'] for r in a]})")
+    for impl in ("jnp",) + FAST_STEPS:
+        for name, over, run in cases:
+            cfg = SimConfig(**cyc, **over, step_impl=impl)
+            got = [run(Simulator(net, cfg, traffic.uniform(net), device=d))
+                   for d in (device, "cpu")]
+            a, b = ([dataclasses.asdict(r) for r in g.flat()] for g in got)
+            check(a == b, f"small-net parity {impl} {name}: CUDA != CPU")
+            print(f"[parity] {impl} {name}: {len(a)} lanes, CUDA == CPU "
+                  f"(delivered {[r['delivered_pkts'] for r in a]})")
+    cfg = SimConfig(**cyc, step_impl="compact")
+    lanes = [(r, s, None) for r in (0.3, 1.2) for s in (0, 1)]
+    runs = [Simulator(net, cfg, traffic.uniform(net), device=d)._batched
+            .run_lanes_async(lanes, capacity=40).finish()
+            for d in (device, "cpu")]
+    a, b = ([dataclasses.asdict(r) for r in run.results] for run in runs)
+    check(runs[0].escalations >= 1, "pinned compact run did not escalate")
+    check(a == b and runs[0].escalations == runs[1].escalations
+          and runs[0].compact_capacity == runs[1].compact_capacity,
+          "small-net parity compact pinned to capacity 40: CUDA != CPU")
+    print(f"[parity] compact pinned to capacity 40: {runs[0].escalations} "
+          f"escalation(s) to rung {runs[0].compact_capacity} (occupancy "
+          f"peak {runs[0].occupancy_peak}), CUDA == CPU")
+
+
+def kernel_entry(name, source, replaces, launches, err, t):
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches, "max_abs_err": err,
+            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": "bytes",
+            "library_ms": None}
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
-                    help="also trace a short window with torch.profiler")
+                    help="also trace a short window of each step with "
+                         "torch.profiler")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -384,22 +642,44 @@ def main(argv=None):
           f"{torch.version.cuda}; {torch.cuda.get_device_name(0)}")
     phase_build()
     phase_prng(device)
-    err = phase_grant_random(device)
+    grant_err = phase_grant_random(device)
     net = full_width_net()
     live_err, grant_args, buf_pkts = phase_grant_live(net, device)
     ms, plain_ms, bound_ms = phase_grant_timing(grant_args, buf_pkts)
+    grant_t = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms)
     del grant_args
-    launches = phase_main_path(net, device)
+    cycle_err = phase_cycle_core_random(device)
+    cycle_t = {}
+    for impl in FAST_STEPS:
+        err, (cargs, ckw) = phase_cycle_core_live(net, device, impl)
+        cycle_err = max(cycle_err, err)
+        cycle_t[impl] = phase_cycle_core_timing(impl, cargs, ckw)
+        del cargs, ckw
+    grant_launches, oracle = phase_main_path(net, device)
+    grids, cycle_launches = {}, {}
+    for impl in FAST_STEPS:
+        cycle_launches[impl], grids[impl] = phase_fast_path(net, device,
+                                                            impl)
+    check_fast_grids(oracle, grids)
     if args.profile:
-        phase_profile(net, device)
+        for impl in ("jnp",) + FAST_STEPS:
+            phase_profile(net, device, impl)
     phase_small_parity(device)
-    print(json.dumps({"kernels": [{
-        "name": "netsim.grant", "route": "cuda",
-        "source": "src/repro_torch/kernels/netsim/csrc/grant.cu",
-        "replaces": "src/repro/kernels/netsim/kernel.py:62",
-        "launches": launches, "max_abs_err": max(err, live_err),
-        "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-        "bound_by": "bytes", "library_ms": None}]}))
+    cycle_entry = kernel_entry(
+        "netsim.cycle_core",
+        "src/repro_torch/kernels/netsim/csrc/cycle_core.cu",
+        "src/repro/kernels/netsim/kernel.py:147",
+        sum(cycle_launches.values()), cycle_err, cycle_t["fused"])
+    # the fused step's shapes give the headline numbers; both steps' own
+    cycle_entry["by_step"] = {impl: dict(cycle_t[impl],
+                                         launches=cycle_launches[impl])
+                              for impl in FAST_STEPS}
+    print(json.dumps({"kernels": [
+        kernel_entry("netsim.grant",
+                     "src/repro_torch/kernels/netsim/csrc/grant.cu",
+                     "src/repro/kernels/netsim/kernel.py:62",
+                     grant_launches, max(grant_err, live_err), grant_t),
+        cycle_entry]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

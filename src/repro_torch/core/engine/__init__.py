@@ -8,9 +8,10 @@ with a leading lane dimension:
     apply     pops / pushes / misroute clearing / serialization
     stats     delivered / latency / hop accumulators
 
-`step.make_step` wires them into one cycle function; `step.run_scan` is
-the cycle loop; `sweep.BatchedSweep` runs a (rate x seed x fault) lane
-grid through it.  Only the oracle step (`step_impl="jnp"`) is ported.
+`step.make_step` wires them into one cycle function (the oracle,
+`step_impl="jnp"`) or returns one of the fused steps of `fused.py`
+("fused", "compact"); `step.run_scan` is the cycle loop;
+`sweep.BatchedSweep` runs a (rate x seed x fault) lane grid through it.
 """
 from .state import (SimState, SimStats, build_consts, build_lane,
                     epoch_index, is_scheduled, lane_epoch, make_state,
@@ -20,6 +21,9 @@ from .inject import (make_inject_fn, make_misroute_fn, build_ugal_watch,
                      ugal_queue_len)
 from .apply import make_apply_fn
 from .stats import accumulate, finalize, zero_stats
+from .fused import (capacity_ladder, compact_rows, grant_form,
+                    initial_capacity, make_compact_step, make_fused_step,
+                    next_rung)
 from .step import make_step, run_scan
 from .sweep import BatchedSweep, LaneRun, SweepResult
 
@@ -29,6 +33,7 @@ __all__ = [
     "resolve_epoch", "make_state", "stack_lanes", "make_arbitrate_fn",
     "make_inject_fn", "make_misroute_fn", "build_ugal_watch",
     "ugal_queue_len", "make_apply_fn", "accumulate", "finalize",
-    "zero_stats", "make_step", "run_scan", "BatchedSweep", "LaneRun",
-    "SweepResult",
+    "zero_stats", "capacity_ladder", "compact_rows", "grant_form",
+    "initial_capacity", "make_compact_step", "make_fused_step", "next_rung",
+    "make_step", "run_scan", "BatchedSweep", "LaneRun", "SweepResult",
 ]

@@ -33,6 +33,17 @@ F_DEST, F_ITIME, F_MIS, F_META, F_READY = range(5)
 NUM_FIELDS = 5
 NUM_SRC_FIELDS = 3      # source-queue records pack (dest, itime, mis)
 
+# the fused and compact steps extend the record with the CACHED next-hop
+# route decision (output channel, requested VC class, next routing meta),
+# evaluated once when the packet is pushed; warm-fault (epoch-scheduled)
+# lanes route per cycle instead and leave these fields zero (see
+# `fused.py`)
+F_OUT, F_CLS, F_META2 = 5, 6, 7
+NUM_FUSED_FIELDS = 8
+
+# step impls whose records carry the cached-route tail
+CACHED_ROUTE_IMPLS = ("fused", "compact")
+
 
 def resolve_device(device=None) -> torch.device:
     """The device a port entry point runs on: `device` when given, else
@@ -95,7 +106,7 @@ class SimState:
     each cycle.  `b_pkt` is a view that hides one spare channel row (see
     `with_sink_row`)."""
 
-    b_pkt: torch.Tensor       # [B, E, NV, S, NUM_FIELDS]
+    b_pkt: torch.Tensor       # [B, E, NV, S, F], F per `make_state`
     b_head: torch.Tensor      # [B, E, NV] ring head
     b_count: torch.Tensor     # [B, E, NV] occupancy (packets)
     s_pkt: torch.Tensor       # [B, T, Q, NUM_SRC_FIELDS]
@@ -114,13 +125,20 @@ def make_state(net: Network, cfg, NV: int, batch: tuple = (), *,
     takes exactly one).  `b_pkt` is allocated with one spare channel row
     (index E) behind the returned view: the apply phase points the
     scatter rows of non-winners at it, the port's form of the
-    reference's ``mode="drop"`` scatter."""
+    reference's ``mode="drop"`` scatter.
+
+    The record width follows `cfg.step_impl`: the fused and compact
+    steps carry the cached route fields (`NUM_FUSED_FIELDS`), the oracle
+    the base payload (`NUM_FIELDS`)."""
     device = resolve_device(device)
     E, T = net.num_channels, net.num_terminals
     S, Q = cfg.buf_pkts, cfg.srcq_pkts
+    nf = (NUM_FUSED_FIELDS
+          if getattr(cfg, "step_impl", "jnp") in CACHED_ROUTE_IMPLS
+          else NUM_FIELDS)
     batch = tuple(batch)
     z = lambda *s: torch.zeros(batch + s, dtype=torch.int32, device=device)
-    b_store = z(E + 1, NV, S, NUM_FIELDS)
+    b_store = z(E + 1, NV, S, nf)
     return SimState(
         b_pkt=b_store.narrow(len(batch), 0, E),
         b_head=z(E, NV), b_count=z(E, NV),

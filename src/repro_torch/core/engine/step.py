@@ -18,13 +18,16 @@ from ..topology import Network
 from ..traffic import as_pattern
 from .apply import make_apply_fn
 from .arbitrate import make_arbitrate_fn
+from .fused import make_compact_step, make_fused_step
 from .inject import make_inject_fn
 from .state import (build_consts, resolve_device, resolve_epoch,
                     resolve_reap_age)
 from .stats import accumulate, reap_mask, track_occ, zero_stats
 
-# the valid `cfg.step_impl` values (SimConfig validates against this);
-# only the oracle step "jnp" is ported so far
+# the valid `cfg.step_impl` values (SimConfig validates against this):
+# "jnp" is the phase pipeline below (the oracle), "fused" the per-channel
+# winner restructuring and "compact" its occupancy-compacted form
+# (`fused.py`; both bit-identical to the oracle)
 STEP_IMPLS = ("jnp", "fused", "compact")
 
 
@@ -35,10 +38,11 @@ def make_step(net: Network, cfg, pattern, inject_mask=None, *, device=None):
     With epoch-stacked lanes (`FaultSchedule`s) the step first selects
     each lane's epoch in effect at cycle `t`."""
     impl = getattr(cfg, "step_impl", "jnp")
-    if impl in ("fused", "compact"):
-        raise NotImplementedError(
-            f"step_impl={impl!r} is not ported to repro_torch yet "
-            f"(ROADMAP.md queue 1, item 7); use step_impl='jnp'")
+    if impl == "fused":
+        return make_fused_step(net, cfg, pattern, inject_mask, device=device)
+    if impl == "compact":
+        return make_compact_step(net, cfg, pattern, inject_mask,
+                                 device=device)
     if impl != "jnp":
         raise ValueError(f"unknown step_impl {impl!r}; "
                          f"valid: {STEP_IMPLS}")

@@ -10,11 +10,12 @@ Port of the single-device part of `repro.core.engine.sweep`:
     grid.saturation_throughput() # scalar, seed-averaged
 
 Lane (i, j) reproduces the reference lane bit for bit: its key chain is
-the reference's and the lanes never mix.  The reference's AOT executable
-cache, lane/channel sharding over a device mesh, K-cycle supersteps, the
-compact step's capacity ladder and escalation, and windowed
-`LaneSession`s are not ported; `SweepResult` keeps their fields with
-their single-device values.
+the reference's and the lanes never mix.  The compact step's capacity
+ladder is ported: a run whose live-row census outgrew its rung is re-run
+whole at the next rung (`_PendingLanes.finish`).  The reference's AOT
+executable cache, lane/channel sharding over a device mesh, K-cycle
+supersteps and windowed `LaneSession`s are not ported; `SweepResult`
+keeps their fields with their single-device values.
 """
 from __future__ import annotations
 
@@ -30,7 +31,9 @@ from ..routing import share_lanes
 from ..topology import (FaultSchedule, FaultSet, Network, as_fault_schedule,
                         compose_faults, final_faults)
 from ..traffic import as_pattern
-from .state import build_lane, make_state, resolve_device, stack_lanes
+from .fused import grant_form, make_compact_step, next_rung
+from .state import (SimStats, build_lane, make_state, resolve_device,
+                    stack_lanes)
 from .stats import finalize, lane_stats
 # `_key_chain` lives with the cycle loop (`step.run_scan`) that draws it;
 # it is re-exported here, where the reference defines it
@@ -60,11 +63,13 @@ class LaneRun(NamedTuple):
     fault_sets: list       # composed per-lane fault states (None=pristine)
     placement: str = "single"
     pad_fraction: float = 0.0
-    grant_form: str = "two_pass"
+    grant_form: str = "two_pass"   # the reference's form (fused.grant_form)
     occupancy_peak: int = 0     # max live request rows over the lanes
-    compact_capacity: int = 0
+    compact_capacity: int = 0   # compact step's final ladder rung (0=dense)
     superstep: int = 1
-    escalations: int = 0
+    escalations: int = 0        # capacity-ladder reruns this run needed
+    # step functions the ABANDONED (breached) runs went through, kept out
+    # of `compile_count`: each ladder rung is its own step
     escalation_compiles: int = 0
 
 
@@ -76,8 +81,11 @@ class SweepResult:
     grid: `rates[i]` repeats the common offered load and `fault_fracs[i]`
     labels row i with its failed-link fraction.  Fields with no meaning
     in the eager single-device port keep the reference's single-device
-    values (`placement="single"`, `grant_form="two_pass"`, ...), and
-    `compile_count` counts the step functions the dispatch ran (1)."""
+    values (`placement="single"`, `superstep=1`, ...), and
+    `compile_count` counts the step functions the dispatch ran (1).
+    `grant_form` is the form the reference's step would compile,
+    `compact_capacity` the compact step's final rung (0 for the dense
+    steps) and `escalations` the capacity-ladder reruns."""
 
     rates: list[float]
     seeds: list[int]
@@ -135,6 +143,47 @@ class SweepResult:
         return max(r.throughput_per_chip for r in self.mean_over_seeds())
 
 
+class _PendingLanes:
+    """An issued `run_lanes_async` call: the cycle loop has been issued
+    (a CUDA device runs it asynchronously); `finish()` waits for the
+    counters, builds the per-lane `SimResult`s, and escalates a compact
+    run whose live set outgrew its rung."""
+
+    def __init__(self, sweep, stats, lanes, fault_sets, t0, grant_form,
+                 capacity, rows):
+        self._sweep, self._stats = sweep, stats
+        self._lanes, self._fsets = lanes, fault_sets
+        self._t0 = t0
+        self._grant_form = grant_form
+        self._capacity, self._rows = capacity, rows
+
+    def finish(self) -> LaneRun:
+        stats = SimStats(**{k: v.cpu() for k, v in vars(self._stats).items()})
+        wall = time.perf_counter() - self._t0
+        sweep, cfg = self._sweep, self._sweep.cfg
+        occ = int(stats.occ_peak.max())
+        if self._capacity and occ > self._capacity:
+            # capacity breach: every cycle after the crossing arbitrated
+            # over a TRUNCATED active set, so nothing of this run is kept.
+            # Re-run the whole grid at the next rung; the rerun is
+            # deterministic, so its result is the oracle's.  `occ` is
+            # exact and the top rung C = N cannot breach.
+            rung = next_rung(self._rows, occ)
+            sweep._capacity_floor = max(sweep._capacity_floor, rung)
+            redo = sweep.run_lanes_async(self._lanes,
+                                         capacity=rung).finish()
+            return redo._replace(
+                wall_s=redo.wall_s + wall,
+                escalations=redo.escalations + 1,
+                escalation_compiles=redo.escalation_compiles + 1)
+        results = [finalize(lane_stats(stats, i), cfg, self._lanes[i][0],
+                            sweep._chips(self._fsets[i]))
+                   for i in range(len(self._lanes))]
+        return LaneRun(results, wall, 0.0, 1, self._fsets,
+                       grant_form=self._grant_form, occupancy_peak=occ,
+                       compact_capacity=self._capacity)
+
+
 class BatchedSweep:
     """Sweep runner over an arbitrary lane grid: one step serves every
     (rate, seed, fault) lane.  `faults` degrades every lane with one fault
@@ -150,6 +199,9 @@ class BatchedSweep:
             step, consts = make_step(net, cfg, pattern, device=self.device)
         self.step, self.consts = step, consts
         self.NV = consts["NV"]
+        self._pattern = pattern
+        self._compact_steps: dict[int, object] = {}
+        self._capacity_floor = 0    # highest escalated rung seen so far
         self.faults = faults
         self.lane0 = (build_lane(net, cfg, faults, device=self.device)
                       if lane is None else lane)
@@ -161,6 +213,20 @@ class BatchedSweep:
     def _rate_pkt(self, offered_per_chip: float) -> float:
         return offered_to_rate_pkt(offered_per_chip, self.cfg,
                                    self.terms_per_chip)
+
+    def _compact_step(self, C: int):
+        """The capacity-C compact step (memoized per ladder rung: the base
+        `self.step` for its own rung, a fresh build otherwise)."""
+        step = self._compact_steps.get(C)
+        if step is None:
+            if getattr(self.step, "compact_capacity", None) == C:
+                step = self.step
+            else:
+                step, _ = make_compact_step(self.net, self.cfg,
+                                            self._pattern, capacity=C,
+                                            device=self.device)
+            self._compact_steps[C] = step
+        return step
 
     def _chips(self, faults) -> float:
         """Accepted-throughput divisor: chips weighted by the fraction of
@@ -205,27 +271,38 @@ class BatchedSweep:
             lane_data = stack_lanes([memo[f] for f in fsets])
         return lanes, rates, keys, lane_data, fsets
 
+    def run_lanes_async(self, lanes, capacity=None) -> _PendingLanes:
+        """Issue the lane grid's cycle loop without waiting for its
+        counters.  `capacity` pins the compact step's ladder rung (the
+        escalation rerun re-enters here with the next rung up); without
+        it a sweep that escalated before starts at that rung."""
+        lanes, rates, keys, lane_data, fsets = self._prepare_lanes(lanes)
+        cfg = self.cfg
+        impl = getattr(cfg, "step_impl", "jnp")
+        if impl == "compact" and capacity is not None:
+            step = self._compact_step(int(capacity))
+        elif impl == "compact" and self._capacity_floor:
+            step = self._compact_step(self._capacity_floor)
+        else:
+            step = self.step
+        gform = (grant_form(self.net, cfg) if impl in ("fused", "compact")
+                 else "two_pass")
+        state0 = make_state(self.net, cfg, self.NV, batch=(len(lanes),),
+                            device=self.device)
+        t0 = time.perf_counter()
+        state = run_scan(step, cfg.warmup + cfg.measure, cfg.warmup,
+                         state0, rates, keys.to(self.device), lane_data)
+        return _PendingLanes(self, state.stats, lanes, fsets, t0, gform,
+                             getattr(step, "compact_capacity", 0),
+                             getattr(step, "compact_rows", 0))
+
     def run_lanes(self, lanes) -> LaneRun:
         """One batched run over a list of `(offered_per_chip, seed, faults)`
         lane triples, where `faults` is a `FaultSet`, a warm
         `FaultSchedule`, or None; each composes on top of the sweep's base
         `faults`.  Returns a `LaneRun` (one `SimResult` per lane, in
         order)."""
-        lanes, rates, keys, lane_data, fsets = self._prepare_lanes(lanes)
-        cfg = self.cfg
-        B = len(lanes)
-        state0 = make_state(self.net, cfg, self.NV, batch=(B,),
-                            device=self.device)
-        t0 = time.perf_counter()
-        state = run_scan(self.step, cfg.warmup + cfg.measure, cfg.warmup,
-                         state0, rates, keys.to(self.device), lane_data)
-        stats = type(state.stats)(**{k: v.cpu()
-                                     for k, v in vars(state.stats).items()})
-        wall = time.perf_counter() - t0
-        results = [finalize(lane_stats(stats, i), cfg, lanes[i][0],
-                            self._chips(fsets[i])) for i in range(B)]
-        return LaneRun(results, wall, 0.0, 1, fsets,
-                       occupancy_peak=int(stats.occ_peak.max()))
+        return self.run_lanes_async(lanes).finish()
 
     def run(self, rates, seeds=None) -> SweepResult:
         cfg = self.cfg
@@ -242,7 +319,7 @@ class BatchedSweep:
         return SweepResult(rates=rates, seeds=seeds, results=results,
                            compile_count=run.compile_count,
                            wall_s=run.wall_s, compile_s=run.compile_s,
-                           occupancy_peak=run.occupancy_peak)
+                           **_run_fields(run))
 
     def run_faults(self, offered_per_chip: float, fault_grid,
                    seeds=None) -> SweepResult:
@@ -270,5 +347,13 @@ class BatchedSweep:
         return SweepResult(rates=[offered_per_chip] * F, seeds=seeds,
                            results=results, compile_count=run.compile_count,
                            wall_s=run.wall_s, compile_s=run.compile_s,
-                           fault_fracs=fracs,
-                           occupancy_peak=run.occupancy_peak)
+                           fault_fracs=fracs, **_run_fields(run))
+
+
+def _run_fields(run: LaneRun) -> dict:
+    """The `LaneRun` telemetry a `SweepResult` carries over."""
+    return dict(grant_form=run.grant_form,
+                occupancy_peak=run.occupancy_peak,
+                compact_capacity=run.compact_capacity,
+                escalations=run.escalations,
+                escalation_compiles=run.escalation_compiles)

@@ -8,8 +8,9 @@ the reference lane bit for bit.
 
 Device rule: a `Simulator` runs on CUDA unless it is given
 ``device="cpu"``; with no CUDA device and no explicit device it raises.
-On CUDA the grant stage runs the hand-written kernel
-(`repro_torch.kernels.netsim`), on the CPU its plain PyTorch version.
+On CUDA the arbitration runs the hand-written kernels
+(`repro_torch.kernels.netsim`: `grant` in the oracle step, `cycle_core`
+in the fused and compact steps), on the CPU their plain PyTorch versions.
 
 Microarchitecture model and routing modes: see the reference module.
 """
@@ -46,8 +47,9 @@ class SimConfig:
     # (`kernels.netsim.ops.grant`: the CUDA kernel on the card, its plain
     # PyTorch version on the CPU)
     grant_impl: str = "jnp"
-    # cycle-step implementation: only the oracle "jnp" is ported; "fused"
-    # and "compact" validate but `make_step` raises NotImplementedError
+    # cycle-step implementation: "jnp" (the oracle phase pipeline),
+    # "fused" or "compact" (`engine/fused.py`; bit-identical to the
+    # oracle, arbitrating through `kernels.netsim.ops.cycle_core`)
     step_impl: str = "jnp"
     # router-death reaper park age (cycles); 0 disables it (see the
     # reference and `engine.state.resolve_reap_age`)
@@ -119,7 +121,9 @@ class Simulator:
     def run(self, offered_per_chip: float, seed: int | None = None,
             faults: FaultSet | FaultSchedule | None = None) -> SimResult:
         """One offered rate.  `faults` (a cold set or a warm schedule)
-        composes on top of the instance fault state for this run only."""
+        composes on top of the instance fault state for this run only.
+        Like the reference's, it runs a compact step at its starting rung
+        and never escalates (only the sweeps do)."""
         cfg = self.cfg
         rate = offered_to_rate_pkt(offered_per_chip, cfg, self.terms_per_chip)
         if faults is None:

@@ -16,7 +16,8 @@ import torch
 from repro_torch.core import topology as T
 from repro_torch.core import traffic
 from repro_torch.core.simulator import SimConfig, Simulator
-from repro_torch.kernels.netsim import grant, grant_ref
+from repro_torch.kernels.netsim import (cycle_core, cycle_core_ref, grant,
+                                       grant_ref)
 
 pytestmark = pytest.mark.cuda
 
@@ -67,4 +68,70 @@ def test_simulator_on_card_equals_cpu(cuda):
     grids = [Simulator(net, cfg, traffic.uniform(net), device=d)
              .sweep_grid([0.3, 1.2], seeds=(0, 1)) for d in (cuda, "cpu")]
     a, b = ([dataclasses.asdict(r) for r in g.flat()] for g in grids)
+    assert a == b
+
+
+def _random_cycle_inputs(rng, B, N, E, itime_lo, explicit_prio, device):
+    out = rng.integers(-1, E, (B, N)).astype(np.int32)
+    itime = rng.integers(itime_lo, itime_lo + 6, (B, N)).astype(np.int32)
+    ok = rng.random((B, N)) < 0.7
+    ch_ok = rng.random((B, E)) < 0.8
+    r2 = 1 << (4 * N - 1).bit_length()
+    prio = (np.stack([rng.permutation(r2)[:N] for _ in range(B)])
+            .astype(np.int32) if explicit_prio else None)
+    t = lambda x: None if x is None else torch.as_tensor(x).to(device)
+    return [t(x) for x in (out, itime, ok, ch_ok)], t(prio), r2
+
+
+@pytest.mark.parametrize("B,N,E", [(1, 1, 1), (1, 1000, 301),
+                                   (4, 20011, 1029)])
+@pytest.mark.parametrize("explicit_prio", [False, True])
+@pytest.mark.parametrize("itime_lo", [0, 2**31 - 8])
+def test_cycle_core_kernel_matches_plain_version(cuda, B, N, E,
+                                                 explicit_prio, itime_lo):
+    """Bit for bit, with stranded ok rows (out = -1), ties, masked
+    channels, an explicit non-iota prio and ages where the reference's
+    int32 key would overflow."""
+    rng = np.random.default_rng(N + itime_lo % 97)
+    args, prio, r2 = _random_cycle_inputs(rng, B, N, E, itime_lo,
+                                          explicit_prio, cuda)
+    before = cycle_core.launches
+    got = cycle_core(*args, r2=r2, prio=prio)
+    torch.cuda.synchronize()
+    assert cycle_core.launches == before + 1
+    want = cycle_core_ref(*args, r2=r2, prio=prio)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    # one lane equals the same lane run alone, a shared channel mask too
+    ch_ok = args[3][:1].expand(B, E)
+    got = cycle_core(*args[:3], ch_ok, r2=r2, prio=prio)
+    for b in range(B):
+        one = cycle_core(*(x[b] for x in args[:3]), ch_ok[b], r2=r2,
+                         prio=None if prio is None else prio[b])
+        assert all(torch.equal(o, g[b]) for o, g in zip(one, got))
+
+
+@pytest.mark.parametrize("impl", ["fused", "compact"])
+def test_fast_steps_on_card_equal_cpu(cuda, impl):
+    net = T.build_switchless(
+        T.SwitchlessParams(a=2, b=2, m=2, n=4, noc=2, g=3), "small")
+    cfg = SimConfig(warmup=30, measure=120, vc_mode="updown",
+                    route_mode="ugal", step_impl=impl)
+    grids = [Simulator(net, cfg, traffic.uniform(net), device=d)
+             .sweep_grid([0.3, 1.2], seeds=(0, 1)) for d in (cuda, "cpu")]
+    a, b = ([dataclasses.asdict(r) for r in g.flat()] for g in grids)
+    assert a == b
+
+
+def test_compact_escalation_on_card_equals_cpu(cuda):
+    """A compact run pinned below the live peak escalates on the card
+    exactly as on the CPU."""
+    net = T.build_switchless(
+        T.SwitchlessParams(a=2, b=2, m=2, n=4, noc=2, g=3), "small")
+    cfg = SimConfig(warmup=30, measure=120, step_impl="compact")
+    lanes = [(r, s, None) for r in (0.3, 1.2) for s in (0, 1)]
+    runs = [Simulator(net, cfg, traffic.uniform(net), device=d)._batched
+            .run_lanes_async(lanes, capacity=40).finish()
+            for d in (cuda, "cpu")]
+    assert runs[0].escalations == runs[1].escalations >= 1
+    a, b = ([dataclasses.asdict(r) for r in run.results] for run in runs)
     assert a == b

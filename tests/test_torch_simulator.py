@@ -141,15 +141,22 @@ def test_config_validation_and_unported_steps():
     _, pn = _pair(a=1, b=1, m=2, n=6, noc=2, g=1)
     with pytest.raises(ValueError, match="grant_impl"):
         SimConfig(grant_impl="magic")
-    for impl in ("fused", "compact"):
-        with pytest.raises(NotImplementedError, match="queue 1, item 7"):
-            Simulator(pn, SimConfig(step_impl=impl), PTR.uniform(pn),
-                      device="cpu")
-    # both reference grant names run the one grant of the port
-    res = [Simulator(pn, SimConfig(warmup=5, measure=30, grant_impl=g),
+    with pytest.raises(ValueError, match="step_impl"):
+        SimConfig(step_impl="warp")
+    # the fused step's channel sharding is the part still unported
+    from repro_torch.core.engine.fused import make_fused_step
+    with pytest.raises(NotImplementedError, match="queue 1, item 12"):
+        make_fused_step(pn, SimConfig(step_impl="fused"), PTR.uniform(pn),
+                        shards=2, device="cpu")
+    # both reference grant names run the one arbitration of the port, in
+    # every step, and all steps agree
+    res = [Simulator(pn, SimConfig(warmup=5, measure=30, grant_impl=g,
+                                   step_impl=impl),
                      PTR.uniform(pn), device="cpu").run(0.5)
-           for g in ("jnp", "pallas")]
-    assert dataclasses.asdict(res[0]) == dataclasses.asdict(res[1])
+           for g in ("jnp", "pallas")
+           for impl in ("jnp", "fused", "compact")]
+    assert all(dataclasses.asdict(r) == dataclasses.asdict(res[0])
+               for r in res)
 
 
 def _imports(path: Path):
