@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch/CUDA port (`src/repro_torch`) on one NVIDIA GPU.
 
     python3 chip_smoke.py              # from the repository root
-    python3 chip_smoke.py --profile    # adds a torch.profiler window
+    python3 chip_smoke.py --profile    # adds torch.profiler windows
 
 Phases (any failure ends the run with a nonzero exit):
 
@@ -32,7 +32,20 @@ Phases (any failure ends the run with a nonzero exit):
 5. the port on the card against the port on the CPU on a small network,
    field for field, for all three steps across routing modes, cold and
    warm faults and the reaper, plus a compact run pinned below its live
-   peak, which must escalate.
+   peak, which must escalate;
+6. the flash-attention kernel against its plain version on the card: the
+   shapes of the reference's kernel tests in fp32 and bf16, windows 32
+   and 128, non-causal with Sk = 96 and with a ragged Sk, and the serving
+   path's prefill shape (B = 4, S = 2048, H = 24, KV = 8, hd = 128) in
+   fp32 and bf16, each output row held to its own size; the bf16 serving
+   shape is also timed beside the plain version and the SDPA call;
+7. the LM serving path at full width: `llama3.2-3b` in bf16 with seeded
+   random weights, `generate` with batch 4, prompt 2048, 16 new tokens,
+   prefill on the kernel (one launch a layer); then a kernel prefill and
+   one decode step against the same 2,064-slot cache, their last-position
+   logits held to one naive forward over the prompt and that token;
+8. the served smoke model in fp32 on the card against the CPU: equal
+   greedy tokens, prefill logits within 1e-4.
 
 Then one JSON line of kernel numbers, the card's name and power limit, and
 the final status line.  Exits nonzero, printing no result, without a CUDA
@@ -54,11 +67,14 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 H100_BYTES_PER_S = 3.35e12      # HBM3 of the H100 SXM (NVIDIA data sheet)
+H100_BF16_OPS_PER_S = 989.4e12  # dense bf16 tensor cores (NVIDIA data sheet)
 FULL_RATES, FULL_SEEDS = (0.1, 0.4), (0, 1)
 FAST_RATES = (0.4, 1.0)
 FAST_STEPS = ("fused", "compact")
 FULL_CFG = dict(warmup=300, measure=1200)
 LIVE_CYCLES = 50
+FA_TOL = {"float32": 2e-5, "bfloat16": 2e-2}    # as tests/test_kernels.py
+SERVE_ARCH, SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = "llama3.2-3b", 4, 2048, 16
 
 
 def check(cond, msg):
@@ -90,17 +106,26 @@ def cuda_ms(fn, reps):
 
 
 def phase_build():
+    """Build every kernel library of the port, one nvcc each, started
+    together."""
+    from concurrent.futures import ThreadPoolExecutor
     from repro_torch.kernels import build
+    from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.netsim import ops
     t0 = time.perf_counter()
-    ops.library()
-    rec = build.build_record(ops.LIBRARY)
-    print(f"[build] netsim kernels ({', '.join(p.name for p in ops.SOURCES)}"
-          f"): nvcc {rec['seconds']:.2f} s "
-          f"(load {time.perf_counter() - t0:.2f} s)")
-    for line in rec["report"].splitlines():
-        if any(w in line for w in ("entry function", "registers", "spill")):
-            print(f"[build]   {line.strip()}")
+    with ThreadPoolExecutor() as pool:
+        list(pool.map(lambda mod: mod.library(), (ops, fa_ops)))
+    print(f"[build] all kernel libraries loaded in "
+          f"{time.perf_counter() - t0:.2f} s")
+    for mod in (ops, fa_ops):
+        rec = build.build_record(mod.LIBRARY)
+        names = ", ".join(p.name for p in mod.SOURCES)
+        print(f"[build] {mod.LIBRARY} ({names}): nvcc "
+              f"{rec['seconds']:.2f} s")
+        for line in rec["report"].splitlines():
+            if any(w in line for w in ("entry function", "registers",
+                                       "spill")):
+                print(f"[build]   {line.strip()}")
 
 
 def phase_prng(device):
@@ -425,8 +450,10 @@ class ConservationProbe:
 
 
 def _reset_launches():
+    from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.netsim import ops
     ops.grant.launches = ops.cycle_core.launches = 0
+    fa_ops.flash_attention.launches = 0
 
 
 def phase_main_path(net, device):
@@ -549,6 +576,15 @@ def phase_profile(net, device, impl, cycles=20):
         run_scan(step, cycles, -1, state, rates, keys, fl)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    profile_report(prof, wall, f"{impl}, {cycles} cycles", cycles, "cycle",
+                   ("grant", "cycle_"))
+
+
+def profile_report(prof, wall, label, n, unit, names):
+    """Device busy share and kernels per `unit` of a profiler window, the
+    device time per launch of the kernels whose name holds one of `names`,
+    and the top of the table."""
+    import torch
     events = prof.key_averages()
     attr = ("self_device_time_total"
             if hasattr(events[0], "self_device_time_total")
@@ -556,14 +592,41 @@ def phase_profile(net, device, impl, cycles=20):
     kernels = [e for e in events if getattr(e, attr) > 0
                and e.device_type == torch.autograd.DeviceType.CUDA]
     dev = sum(getattr(e, attr) for e in kernels) / 1e3            # ms
-    print(f"[profile] {impl}, {cycles} cycles: wall {wall * 1e3:.1f} ms, "
+    print(f"[profile] {label}: wall {wall * 1e3:.1f} ms, "
           f"device busy {dev:.1f} ms ({100 * dev / (wall * 1e3):.1f}%), "
-          f"{sum(e.count for e in kernels) / cycles:.0f} kernels per cycle")
+          f"{sum(e.count for e in kernels) / n:.0f} kernels per {unit}")
     for e in kernels:
-        if "grant" in e.key or "cycle_" in e.key:
+        if any(name in e.key for name in names):
             print(f"[profile]   {e.key}: {getattr(e, attr) / e.count:.2f} us "
                   f"device time per launch, {e.count} launches")
     print(events.table(sort_by=attr, row_limit=12))
+
+
+def phase_serve_profile(model, cfg, tokens, device, steps=4):
+    """torch.profiler over one full-width prefill on the kernel, then over
+    `steps` decode steps."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models import transformer as TF
+    B, S = tokens.shape
+    with torch.inference_mode():
+        cache = TF.init_cache(cfg, B, S + steps, device=device)
+        tok = torch.as_tensor(tokens, dtype=torch.int32, device=device)
+        for mode, n in (("prefill", 1), ("decode", steps)):
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                for _ in range(n):
+                    logits, cache, _ = TF.forward(
+                        model, cfg, {"tokens": tok}, mode, cache=cache,
+                        attn_impl="kernel" if mode == "prefill" else "naive")
+                    tok = torch.argmax(logits[:, -1:], dim=-1).int()
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            del logits
+            profile_report(prof, wall, f"serve {mode}, {n} step(s)", n,
+                           "step", ("flash_fwd",))
 
 
 SMALL = dict(a=2, b=2, m=2, n=4, noc=2, g=3)
@@ -618,25 +681,214 @@ def phase_small_parity(device):
           f"peak {runs[0].occupancy_peak}), CUDA == CPU")
 
 
+def _fa_cases():
+    """(label, shape (B, Sq, Sk, H, KV, hd), dtype, kwargs) of phase 6."""
+    shapes = [(1, 128, 128, 2, 2, 64), (2, 256, 256, 4, 2, 64),
+              (2, 192, 320, 4, 1, 80), (1, 512, 512, 8, 8, 128),
+              (1, 64, 64, 10, 1, 256)]
+    cases = [(f"sweep {s}", s, dt, dict(causal=True))
+             for s in shapes for dt in ("float32", "bfloat16")]
+    cases += [(f"window {w}", (2, 256, 256, 4, 2, 64), "float32",
+               dict(causal=True, window=w)) for w in (32, 128)]
+    cases += [("non-causal Sk=96", (1, 128, 96, 2, 2, 64), "float32",
+               dict(causal=False)),
+              ("non-causal ragged Sk=200", (1, 128, 200, 2, 2, 64),
+               "float32", dict(causal=False))]
+    serving = (SERVE_BATCH, SERVE_PROMPT, SERVE_PROMPT, 24, 8, 128)
+    cases += [("serving prefill", serving, dt, dict(causal=True))
+              for dt in ("float32", "bfloat16")]
+    return cases
+
+
+def _fa_inputs(seed, shape, dtype, device):
+    import torch
+    B, Sq, Sk, H, KV, hd = shape
+    g = torch.Generator(device=device).manual_seed(seed)
+    return [torch.randn(s, generator=g, device=device).to(getattr(torch,
+                                                                  dtype))
+            for s in ((B, Sq, H, hd), (B, Sk, KV, hd), (B, Sk, KV, hd))]
+
+
+def phase_flash_attention(device):
+    """The kernel against `attention_ref` on the card for every case;
+    returns (max abs error, the bf16 serving shape's inputs).  The error
+    is relative per output row (one query position of one head): each
+    row's largest |kernel - plain| over that row's largest |plain|, so a
+    late causal row, an average of thousands of values and far smaller
+    than the first row's, is held to its own size."""
+    import torch
+    from repro_torch.kernels.flash_attention import attention_ref, ops
+    worst = 0.0
+    for i, (label, shape, dtype, kw) in enumerate(_fa_cases()):
+        q, k, v = _fa_inputs(i, shape, dtype, device)
+        got = ops.flash_attention(q, k, v, **kw).float()
+        want = attention_ref(q, k, v, **kw).float()
+        torch.cuda.synchronize()
+        row_err = (got - want).abs().amax(-1)
+        diff = float(row_err.max())
+        rel = float((row_err / want.abs().amax(-1).clamp_min(1e-6)).max())
+        check(bool(torch.isfinite(got).all()), f"flash_attention {label}: "
+                                               f"non-finite output")
+        del got, want, row_err
+        check(rel < FA_TOL[dtype], f"flash_attention {label} {dtype}: "
+                                   f"relative error {rel} >= {FA_TOL[dtype]}")
+        worst = max(worst, diff)
+        print(f"[flash] {label} {dtype} {kw}: kernel == attention_ref "
+              f"(max abs {diff:.3e}, relative per row {rel:.3e})")
+    return worst, (q, k, v)
+
+
+def phase_flash_timing(q, k, v):
+    """Kernel, plain version and the SDPA call at the serving prefill
+    shape, back to back; the bound is the larger of the bf16 operations
+    at the tensor cores' peak and the bytes at the memory's."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import attention_ref, ops
+    B, S, H, hd = q.shape
+    ms = cuda_ms(lambda: ops.flash_attention(q, k, v, causal=True), 20)
+    plain_ms = cuda_ms(lambda: attention_ref(q, k, v, causal=True), 5)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True, enable_gqa=True), 20)
+    ops_count = 4 * hd * B * H * S * (S + 1) // 2     # causal pairs only
+    nbytes = sum(x.numel() * x.element_size() for x in (q, k, v, q))
+    ops_ms = ops_count / H100_BF16_OPS_PER_S * 1e3
+    bytes_ms = nbytes / H100_BYTES_PER_S * 1e3
+    bound_ms = max(ops_ms, bytes_ms)
+    print(f"[flash] B={B} S={S} H={H} KV={k.shape[2]} hd={hd} bf16: kernel "
+          f"{ms:.4f} ms/launch, plain {plain_ms:.4f} ms, SDPA "
+          f"{library_ms:.4f} ms, bound {bound_ms * 1e3:.2f} us "
+          f"({ops_count} operations: {ops_ms * 1e3:.2f} us at 989.4 TFLOP/s; "
+          f"{nbytes} bytes: {bytes_ms * 1e3:.2f} us at 3.35 TB/s)")
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by="operations" if ops_ms >= bytes_ms else "bytes",
+                library_ms=library_ms)
+
+
+def phase_serve(device, profile=False):
+    """The serving path at full width; returns the kernel's launches in
+    one `generate`.  With `profile`, then traces a prefill and a few
+    decode steps."""
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import transformer as TF
+    cfg = get_config(SERVE_ARCH)
+    B, S, gen = SERVE_BATCH, SERVE_PROMPT, SERVE_GEN
+    t0 = time.perf_counter()
+    model = TF.init_params(cfg, torch.Generator(device=device).manual_seed(0),
+                           device=device)
+    torch.cuda.synchronize()
+    print(f"[serve] {cfg.name}: {cfg.num_params()} parameters (num_params), "
+          f"{cfg.dtype}, init on the card {time.perf_counter() - t0:.2f} s")
+    tokens = np.random.default_rng(0).integers(0, cfg.vocab_size, (B, S))
+    # warm-up: the first bf16 products load their cuBLAS kernels
+    generate(model, cfg, {"tokens": tokens[:, :128]}, 2,
+             prefill_impl="kernel", device=device)
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launches()
+    out, prefill_s, decode_ms = generate(model, cfg, {"tokens": tokens}, gen,
+                                         prefill_impl="kernel", device=device)
+    launches = fa_ops.flash_attention.launches
+    peak = torch.cuda.max_memory_allocated()
+    check(tuple(out.shape) == (B, gen), f"generated shape {tuple(out.shape)}")
+    check(bool(((out >= 0) & (out < cfg.vocab_size)).all()),
+          "a generated token outside [0, V)")
+    check(launches == cfg.num_layers,
+          f"flash_attention launches {launches} != {cfg.num_layers} layers "
+          f"in one prefill")
+    print(f"[serve] batch {B}, prompt {S}, {gen} tokens: prefill "
+          f"{prefill_s * 1e3:.2f} ms ({B * S / prefill_s:.1f} tokens/s), "
+          f"decode {decode_ms:.3f} ms/token ({B * 1e3 / decode_ms:.1f} "
+          f"tokens/s); flash_attention launches {launches}; "
+          f"max_memory_allocated {peak} bytes")
+    print(f"[serve] tokens[0]: {out[0].tolist()}")
+    # as generate runs them (kernel prefill into the S + gen slot cache,
+    # then one decode step), against one naive forward over the prompt
+    # and the decoded token: its positions S-1 and S
+    with torch.inference_mode():
+        prompt = torch.as_tensor(tokens, dtype=torch.int32, device=device)
+        cache = TF.init_cache(cfg, B, S + gen, device=device)
+        logits, cache, _ = TF.forward(model, cfg, {"tokens": prompt},
+                                      "prefill", cache=cache,
+                                      attn_impl="kernel")
+        served = [logits[:, -1].float()]
+        nxt = torch.argmax(logits[:, -1:], dim=-1).int()
+        del logits
+        logits, cache, _ = TF.forward(model, cfg, {"tokens": nxt}, "decode",
+                                      cache=cache)
+        served.append(logits[:, -1].float())
+        del logits, cache
+        logits, _, _ = TF.forward(model, cfg,
+                                  {"tokens": torch.cat([prompt, nxt], 1)},
+                                  "train", attn_impl="naive")
+        naive = [logits[:, -2].float(), logits[:, -1].float()]
+        del logits
+    for what, a, b in zip(("prefill (kernel)", "decode step"), served, naive):
+        rel = float((a - b).abs().max() / b.abs().max())
+        check(rel < 2e-2, f"{what} logits vs naive full forward: relative "
+                          f"{rel}")
+        print(f"[serve] {what} logits vs a naive full forward, last "
+              f"position: relative {rel:.3e}")
+    if profile:
+        phase_serve_profile(model, cfg, tokens, device)
+    return launches
+
+
+def phase_lm_parity(device):
+    """The smoke model in fp32 with the same weights on the card and on the
+    CPU: equal greedy tokens, prefill logits within 1e-4 relative."""
+    import copy
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import transformer as TF
+    cfg = dataclasses.replace(get_config(SERVE_ARCH + "-smoke"),
+                              dtype="float32")
+    cpu = TF.init_params(cfg, torch.Generator().manual_seed(1), device="cpu")
+    card = copy.deepcopy(cpu).to(device)
+    tokens = np.random.default_rng(1).integers(0, cfg.vocab_size, (2, 64))
+    runs = [(card, device), (cpu, "cpu")]
+    outs = [generate(m, cfg, {"tokens": tokens}, 8, prefill_impl="kernel",
+                     device=d)[0].cpu() for m, d in runs]
+    check(torch.equal(outs[0], outs[1]), "smoke model: CUDA tokens != CPU")
+    logits = []
+    with torch.inference_mode():
+        for m, d in runs:
+            batch = {"tokens": torch.as_tensor(tokens).to(d)}
+            logits.append(TF.forward(m, cfg, batch, "prefill",
+                                     cache=TF.init_cache(cfg, 2, 64, device=d),
+                                     attn_impl="kernel")[0].cpu())
+    rel = float((logits[0] - logits[1]).abs().max() / logits[1].abs().max())
+    check(rel < 1e-4, f"smoke model: CUDA logits vs CPU relative {rel}")
+    print(f"[lm-parity] {cfg.name} fp32: 8 greedy tokens CUDA == CPU "
+          f"{outs[0][0].tolist()}; prefill logits relative {rel:.3e}")
+
+
 def kernel_entry(name, source, replaces, launches, err, t):
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches, "max_abs_err": err,
             "ms": t["ms"], "plain_ms": t["plain_ms"],
-            "bound_ms": t["bound_ms"], "bound_by": "bytes",
-            "library_ms": None}
+            "bound_ms": t["bound_ms"], "bound_by": t.get("bound_by", "bytes"),
+            "library_ms": t.get("library_ms")}
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
-                    help="also trace a short window of each step with "
-                         "torch.profiler")
+                    help="also trace a short window of each simulator "
+                         "step and of serving with torch.profiler")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     device = "cuda"
+    # fp32 products in full fp32 on the card (the defaults, stated)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     card = card_line()
     print(f"[card] {card}; torch {torch.__version__} CUDA "
           f"{torch.version.cuda}; {torch.cuda.get_device_name(0)}")
@@ -665,6 +917,11 @@ def main(argv=None):
         for impl in ("jnp",) + FAST_STEPS:
             phase_profile(net, device, impl)
     phase_small_parity(device)
+    fa_err, fa_args = phase_flash_attention(device)
+    fa_t = phase_flash_timing(*fa_args)
+    del fa_args
+    fa_launches = phase_serve(device, profile=args.profile)
+    phase_lm_parity(device)
     cycle_entry = kernel_entry(
         "netsim.cycle_core",
         "src/repro_torch/kernels/netsim/csrc/cycle_core.cu",
@@ -679,7 +936,12 @@ def main(argv=None):
                      "src/repro_torch/kernels/netsim/csrc/grant.cu",
                      "src/repro/kernels/netsim/kernel.py:62",
                      grant_launches, max(grant_err, live_err), grant_t),
-        cycle_entry]}))
+        cycle_entry,
+        kernel_entry("flash_attention",
+                     "src/repro_torch/kernels/flash_attention/csrc/"
+                     "flash_attention.cu",
+                     "src/repro/kernels/flash_attention/kernel.py:25",
+                     fa_launches, fa_err, fa_t)]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

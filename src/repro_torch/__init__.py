@@ -1,9 +1,10 @@
-"""repro_torch: the PyTorch/CUDA port of the switch-less Dragonfly simulator.
+"""repro_torch: the PyTorch/CUDA port of the switch-less Dragonfly simulator
+and its LM substrate.
 
 A second package beside the JAX reference `repro`.  It mirrors `repro`'s
 module paths and public names, imports `torch` and `numpy` only, and runs
 its entry points on a CUDA device unless the caller passes
-``device="cpu"`` (see `core.engine.state.resolve_device`).
+``device="cpu"`` (see `device.resolve_device`).
 
 This module is the ONLY place the port reads environment variables:
 every `REPRO_*` knob goes through `env_int` (or `env_raw` for raw

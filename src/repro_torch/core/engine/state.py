@@ -11,7 +11,8 @@ engine hands to the step lane-stacked (`stack_lanes`) or shared
 (`routing.share_lanes`).
 
 Device rule: the public entry points run on CUDA unless the caller passes
-``device="cpu"``; with no CUDA device they raise (`resolve_device`).
+``device="cpu"``; with no CUDA device they raise (`resolve_device`,
+from `repro_torch.device`).
 """
 from __future__ import annotations
 
@@ -21,6 +22,7 @@ import numpy as np
 import torch
 
 from ... import env_int
+from ...device import resolve_device  # noqa: F401  (re-exported)
 from ...tensors import as_tensor
 from ..topology import (NUM_CH_TYPES, FaultSchedule, FaultSet, Network,
                         glob_pair_alive, wg_channel_alive_frac)
@@ -43,20 +45,6 @@ NUM_FUSED_FIELDS = 8
 
 # step impls whose records carry the cached-route tail
 CACHED_ROUTE_IMPLS = ("fused", "compact")
-
-
-def resolve_device(device=None) -> torch.device:
-    """The device a port entry point runs on: `device` when given, else
-    CUDA.  Raises when CUDA is absent and the caller did not ask for the
-    CPU — the port never falls back to the CPU silently."""
-    if device is not None:
-        return torch.device(device)
-    if not torch.cuda.is_available():
-        raise RuntimeError(
-            "repro_torch runs on a CUDA device by default and none is "
-            "available; pass device='cpu' to run the plain PyTorch path "
-            "on the CPU")
-    return torch.device("cuda")
 
 
 def resolve_reap_age(cfg) -> int:

@@ -1,0 +1,92 @@
+"""Serving launcher (port of `repro.launch.serve`): --arch <id>, batched
+prefill + greedy decode against KV caches.
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-3b
+
+Prefill runs the flash-attention kernel (`attn_impl="kernel"`), where the
+reference runs its portable online-softmax stand-in ("chunked"): both
+compute the same exact causal attention.  `--smoke` keeps "naive", as the
+reference does.  Decode runs the attention layer's decode branch.
+"""
+from __future__ import annotations
+
+import argparse
+import time
+
+import numpy as np
+import torch
+
+from ..configs.registry import ARCHS, get_config
+from ..device import resolve_device
+from ..models import transformer as TF
+
+
+def generate(model, cfg, batch, gen, *, prefill_impl, device=None):
+    """Greedy generation of `gen` tokens after a batched prefill of
+    ``batch["tokens"]`` [B, S].  Returns (tokens [B, gen] int32 on the
+    device, prefill seconds, decode ms per token).  The device is
+    synchronised before each clock is read."""
+    device = resolve_device(device)
+    if next(model.parameters()).device.type != device.type:
+        raise ValueError(f"generate: the model is not on {device}")
+    tokens = torch.as_tensor(batch["tokens"], dtype=torch.int32).to(device)
+    B, S = tokens.shape
+    cache = TF.init_cache(cfg, B, max_len=S + gen, device=device)
+
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+
+    with torch.inference_mode():
+        sync()
+        t0 = time.perf_counter()
+        logits, cache, _ = TF.forward(model, cfg, {"tokens": tokens},
+                                      "prefill", cache=cache,
+                                      attn_impl=prefill_impl)
+        tok = torch.argmax(logits[:, -1:], dim=-1).int()
+        sync()
+        t_pref = time.perf_counter() - t0
+        toks = [tok]
+        t0 = time.perf_counter()
+        for _ in range(gen - 1):
+            logits, cache, _ = TF.forward(model, cfg, {"tokens": tok},
+                                          "decode", cache=cache,
+                                          attn_impl="naive")
+            tok = torch.argmax(logits[:, -1:], dim=-1).int()
+            toks.append(tok)
+        sync()
+        t_dec = time.perf_counter() - t0
+    return torch.cat(toks, dim=1), t_pref, t_dec / max(gen - 1, 1) * 1e3
+
+
+def main(argv=None, device=None):
+    """The reference's command line.  Runs on CUDA unless `device` says
+    otherwise; returns the generated tokens."""
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", required=True, choices=sorted(ARCHS))
+    ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=32)
+    ap.add_argument("--gen", type=int, default=16)
+    args = ap.parse_args(argv)
+
+    device = resolve_device(device)
+    cfg = get_config(args.arch + ("-smoke" if args.smoke else ""))
+    model = TF.init_params(cfg, torch.Generator(device=device).manual_seed(0),
+                           device=device)
+    rng = np.random.default_rng(0)
+    B, S = args.batch, args.prompt_len
+    tokens = rng.integers(0, cfg.vocab_size, (B, S))
+    impl = "naive" if args.smoke else "kernel"
+    out, t_pref, dec_ms = generate(model, cfg, {"tokens": tokens}, args.gen,
+                                   prefill_impl=impl, device=device)
+    print(f"{cfg.name}: prefill {t_pref * 1e3:.1f} ms, decode "
+          f"{dec_ms:.1f} ms/token")
+    print("tokens[0]:", out[0, :12].tolist())
+    if not bool(((out >= 0) & (out < cfg.vocab_size)).all()):
+        raise RuntimeError("generated a token outside the vocabulary")
+    return out
+
+
+if __name__ == "__main__":
+    main()

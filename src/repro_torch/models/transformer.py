@@ -1,0 +1,254 @@
+"""The LM stack (port of `repro.models.transformer`), for the families the
+port has so far: dense attention models (full or local attention,
+dense SwiGLU FFNs).
+
+The reference groups layers into repeating "pattern" super-blocks and
+scans them; here the groups are an `nn.ModuleList` looped over in Python,
+each group an `nn.ModuleDict` of sub-blocks ``sub0 ... sub{P-1}``.
+Parameter names mirror the reference's tree (``blocks.<g>.sub<j>.mix.q.w``
+is the reference's ``blocks.sub<j>.mix.q.w[g]``).  The reference's
+sharding hook (`constrain`) is the identity on one device and is dropped.
+
+Not ported yet, and raising `NotImplementedError` (ROADMAP queue 1 item
+13): the `rglru` and `ssm` block kinds, MoE FFNs, encoder-decoder models
+and modality frontends.
+
+Modes:
+  train    - full sequence, loss-ready logits
+  prefill  - full sequence + populates the KV caches
+  decode   - single token step against the caches
+
+Caches are updated in place: `forward` writes each layer's new keys,
+values, `idx` and `base` into the `cache` it was given and returns it.
+"""
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from ..configs.base import ModelConfig
+from ..device import resolve_device
+from . import layers as L
+from .layers import AttnConfig
+
+
+def _attn_cfg(cfg: ModelConfig, impl: str, kind: str) -> AttnConfig:
+    return AttnConfig(
+        d_model=cfg.d_model, num_heads=cfg.num_heads,
+        num_kv_heads=cfg.num_kv_heads, head_dim=cfg.hd,
+        use_bias=cfg.use_bias, rope_theta=cfg.rope_theta,
+        rope_frac=cfg.rope_frac, causal=(kind != "enc"),
+        window=(cfg.local_window or None) if kind == "local" else None,
+        attn_impl=impl)
+
+
+def _layer_kind(cfg: ModelConfig, i: int) -> str:
+    return cfg.block_pattern[i % len(cfg.block_pattern)]
+
+
+def _ffn_kind(cfg: ModelConfig, i: int) -> str:
+    if cfg.moe is not None and i >= cfg.first_dense:
+        return "moe"
+    return "dense" if cfg.d_ff else "none"
+
+
+def _check_ported(cfg: ModelConfig):
+    """Raise for the parts of the reference's LM stack not ported yet."""
+    todo = "is not ported yet (ROADMAP queue 1 item 13)"
+    for kind in set(cfg.block_pattern) - {"attn", "local"}:
+        raise NotImplementedError(
+            f"{cfg.name}: block kind {kind!r} (models/{kind}.py) {todo}")
+    if cfg.moe is not None:
+        raise NotImplementedError(f"{cfg.name}: MoE FFN (models/moe.py) "
+                                  f"{todo}")
+    if cfg.encoder_layers:
+        raise NotImplementedError(f"{cfg.name}: the encoder of an "
+                                  f"encoder-decoder model {todo}")
+    if cfg.frontend:
+        raise NotImplementedError(f"{cfg.name}: the {cfg.frontend} frontend "
+                                  f"(prefix embeddings) {todo}")
+
+
+# --- single sub-block --------------------------------------------------------
+
+class Block(nn.Module):
+    """One pre-norm sub-block: attention mixer, then the FFN (`_sub_init`)."""
+
+    def __init__(self, cfg: ModelConfig, kind: str, ffn: str, device=None):
+        super().__init__()
+        dtype = cfg.torch_dtype
+        self.norm1 = L.RMSNorm(cfg.d_model, device)
+        self.mix = L.Attention(_attn_cfg(cfg, "naive", kind), dtype, device)
+        if ffn == "dense":
+            self.norm2 = L.RMSNorm(cfg.d_model, device)
+            self.ffn = L.SwiGLU(cfg.d_model, cfg.d_ff, dtype, cfg.use_bias,
+                                device)
+        else:
+            self.norm2 = self.ffn = None
+
+
+def _sub_apply(p: Block, cfg: ModelConfig, kind: str, ffn: str, impl: str,
+               x, positions, inv_freq, cache):
+    h = L.rmsnorm(p.norm1, x, cfg.norm_eps)
+    acfg = _attn_cfg(cfg, impl, kind)
+    mixed, _ = L.attention_apply(p.mix, acfg, h, positions, inv_freq, cache)
+    x = x + mixed
+    if ffn == "dense":
+        h2 = L.rmsnorm(p.norm2, x, cfg.norm_eps)
+        x = x + L.swiglu(p.ffn, h2)
+    return x
+
+
+def _sub_cache_init(cfg: ModelConfig, kind: str, batch, max_len, dtype,
+                    device, lead=()):
+    W = min(cfg.local_window, max_len) if kind == "local" \
+        and cfg.local_window else max_len
+    shape = (*lead, batch, W, cfg.num_kv_heads, cfg.hd)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device),
+            "idx": torch.zeros(lead, dtype=torch.int32, device=device),
+            "base": torch.zeros(lead, dtype=torch.int32, device=device)}
+
+
+# --- model -------------------------------------------------------------------
+
+def _segments(cfg: ModelConfig):
+    """(prelude_idx, scanned group count, pattern len, postlude_idx)."""
+    P = len(cfg.block_pattern)
+    pre = list(range(cfg.first_dense))
+    rest = cfg.num_layers - cfg.first_dense
+    groups = rest // P
+    post = list(range(cfg.first_dense + groups * P, cfg.num_layers))
+    return pre, groups, P, post
+
+
+class Transformer(nn.Module):
+    """The model's weights, laid out as the reference's param tree.  Built
+    with uninitialised weights; `init_params` draws them and
+    `convert.params_from_jax` copies them from the reference."""
+
+    def __init__(self, cfg: ModelConfig, device=None):
+        super().__init__()
+        _check_ported(cfg)
+        pre, groups, P, post = _segments(cfg)
+
+        def block(i):
+            return Block(cfg, _layer_kind(cfg, i), _ffn_kind(cfg, i), device)
+
+        self.embed = nn.Parameter(torch.empty(
+            cfg.vocab_size, cfg.d_model, dtype=cfg.torch_dtype, device=device))
+        self.prelude = nn.ModuleList([block(i) for i in pre])
+        self.blocks = nn.ModuleList([
+            nn.ModuleDict({f"sub{j}": block(cfg.first_dense + j)
+                           for j in range(P)}) for _ in range(groups)])
+        self.postlude = nn.ModuleList([block(i) for i in post])
+        self.final_norm = L.RMSNorm(cfg.d_model, device)
+        self.lm_head = None if cfg.tie_embeddings else nn.Parameter(
+            torch.empty(cfg.d_model, cfg.vocab_size, dtype=cfg.torch_dtype,
+                        device=device))
+
+
+def init_params(cfg: ModelConfig, generator: torch.Generator, device=None):
+    """A model with random weights, drawn by `generator` (on its own
+    device) and placed on `device` (CUDA unless the caller passes
+    ``device="cpu"``).  Embeddings are truncated normal of std 1, dense
+    weights of std 1/sqrt(d_in), an untied head of std 1/sqrt(d_model), as
+    in the reference; the numbers differ from the reference's, whose
+    generator is JAX's."""
+    device = resolve_device(device)
+    model = Transformer(cfg, device)
+    with torch.no_grad():
+        model.embed.copy_(L.truncated_normal(
+            generator, model.embed.shape, model.embed.dtype, 1.0))
+        for module in model.modules():
+            if isinstance(module, L.Dense):
+                module.reset(generator)
+        if model.lm_head is not None:
+            model.lm_head.copy_(L.truncated_normal(
+                generator, model.lm_head.shape, model.lm_head.dtype,
+                cfg.d_model ** -0.5))
+    return model
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, device=None):
+    """Zeroed KV caches in the reference's layout: ``prelude`` / ``postlude``
+    lists of per-layer dicts and ``blocks.sub<j>`` dicts stacked over the
+    groups."""
+    _check_ported(cfg)
+    device = resolve_device(device)
+    dtype = cfg.torch_dtype
+    pre, groups, P, post = _segments(cfg)
+    cache = {"prelude": [
+        _sub_cache_init(cfg, _layer_kind(cfg, i), batch, max_len, dtype,
+                        device) for i in pre]}
+    if groups:
+        cache["blocks"] = {
+            f"sub{j}": _sub_cache_init(
+                cfg, _layer_kind(cfg, cfg.first_dense + j), batch, max_len,
+                dtype, device, lead=(groups,))
+            for j in range(P)}
+    cache["postlude"] = [
+        _sub_cache_init(cfg, _layer_kind(cfg, i), batch, max_len, dtype,
+                        device) for i in post]
+    return cache
+
+
+def forward(params: Transformer, cfg: ModelConfig, batch: dict,
+            mode: str = "train", cache=None, attn_impl: str = "chunked"):
+    """batch: tokens [B, S].  Returns (logits, cache, aux_loss); `cache`
+    (prefill, decode) is updated in place and returned."""
+    tokens = batch["tokens"]
+    x = params.embed[tokens]
+    B, S, D = x.shape
+    dev = x.device
+    if mode == "decode":
+        # positions from the first attention cache idx (all layers agree)
+        idx = _first_idx(cache)
+        positions = idx + torch.arange(S, device=dev)[None, :].repeat(B, 1)
+    else:
+        positions = torch.arange(S, dtype=torch.int32,
+                                 device=dev)[None, :].repeat(B, 1)
+    inv_freq = L.rope_freqs(cfg.hd, cfg.rope_theta,
+                            rot_dim=int(cfg.hd * cfg.rope_frac), device=dev)
+    use_cache = cache is not None
+
+    def run_sub(p, i, x, c):
+        return _sub_apply(p, cfg, _layer_kind(cfg, i), _ffn_kind(cfg, i),
+                          attn_impl, x, positions, inv_freq, c)
+
+    def run_listed(part, idxs, x):
+        for j, i in enumerate(idxs):
+            c = cache[part][j] if use_cache else None
+            x = run_sub(getattr(params, part)[j], i, x, c)
+        return x
+
+    pre, groups, P, post = _segments(cfg)
+    x = run_listed("prelude", pre, x)
+    for g in range(groups):
+        for j in range(P):
+            sub = f"sub{j}"
+            # views of group g: the layer's in-place updates land in the stack
+            c = ({name: t[g] for name, t in cache["blocks"][sub].items()}
+                 if use_cache else None)
+            x = run_sub(params.blocks[g][sub], cfg.first_dense + j, x, c)
+    x = run_listed("postlude", post, x)
+
+    x = L.rmsnorm(params.final_norm, x, cfg.norm_eps)
+    head = params.embed.T if cfg.tie_embeddings else params.lm_head
+    logits = x @ head
+    return logits, cache, torch.zeros((), dtype=torch.float32, device=dev)
+
+
+def _first_idx(cache):
+    for part in ("prelude", "postlude"):
+        for c in cache[part]:
+            if "idx" in c:
+                return c["idx"]
+    if "blocks" in cache:
+        for j in range(16):
+            sub = cache["blocks"].get(f"sub{j}")
+            if sub is None:
+                break
+            if "idx" in sub:
+                return sub["idx"][0]
+    return torch.zeros((), dtype=torch.int32)

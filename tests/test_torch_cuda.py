@@ -1,5 +1,7 @@
 """Tests of the port that need the card (marker `cuda`; they skip where
-`torch.cuda.is_available()` is false, since a CUDA kernel has no CPU mode).
+`torch.cuda.is_available()` is false, since a CUDA kernel has no CPU mode):
+the netsim kernels and the simulator, the flash-attention kernel and the
+served LM.
 
 The file imports neither jax nor the reference package, so it runs on the
 machine with the card, where JAX is not installed (`tests/conftest.py`
@@ -7,17 +9,23 @@ imports jax, hence `--noconftest`):
 
     PYTHONPATH=src python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py
 """
+import copy
 import dataclasses
 
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.configs.registry import get_config
 from repro_torch.core import topology as T
 from repro_torch.core import traffic
 from repro_torch.core.simulator import SimConfig, Simulator
+from repro_torch.kernels.flash_attention import attention_ref
+from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.netsim import (cycle_core, cycle_core_ref, grant,
                                        grant_ref)
+from repro_torch.launch.serve import generate
+from repro_torch.models import transformer as TF
 
 pytestmark = pytest.mark.cuda
 
@@ -135,3 +143,63 @@ def test_compact_escalation_on_card_equals_cpu(cuda):
     assert runs[0].escalations == runs[1].escalations >= 1
     a, b = ([dataclasses.asdict(r) for r in run.results] for run in runs)
     assert a == b
+
+
+FA_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+
+
+def _rel(a, b):
+    return float((a.float() - b.float()).abs().max()
+                 / b.float().abs().max().clamp(min=1e-6))
+
+
+@pytest.mark.parametrize("B,Sq,Sk,H,KV,hd,kw", [
+    (1, 128, 128, 2, 2, 64, dict(causal=True)),
+    (2, 192, 320, 4, 1, 80, dict(causal=True)),      # MQA, ragged, hd 80
+    (1, 64, 64, 10, 1, 256, dict(causal=True)),      # hd 256: 139 KB smem
+    (2, 100, 100, 4, 2, 16, dict(causal=True)),      # smoke head_dim
+    (2, 256, 256, 4, 2, 64, dict(causal=True, window=32)),
+    (1, 128, 200, 2, 2, 64, dict(causal=False)),     # ragged non-causal
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_kernel_matches_plain_version(cuda, B, Sq, Sk, H, KV,
+                                                      hd, kw, dtype):
+    g = torch.Generator(device=cuda).manual_seed(Sq * hd + Sk)
+    q, k, v = (torch.randn(s, generator=g, device=cuda).to(dtype)
+               for s in ((B, Sq, H, hd), (B, Sk, KV, hd), (B, Sk, KV, hd)))
+    before = fa_ops.flash_attention.launches
+    got = fa_ops.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert fa_ops.flash_attention.launches == before + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    assert _rel(got, attention_ref(q, k, v, **kw)) < FA_TOL[dtype]
+
+
+def test_flash_attention_kernel_rejects_what_it_does_not_take(cuda):
+    q = torch.zeros((1, 8, 2, 24), device=cuda)
+    with pytest.raises(ValueError, match="head_dim"):
+        fa_ops.flash_attention(q, q, q)
+    with pytest.raises(ValueError, match="float32"):
+        fa_ops.flash_attention(q.half(), q.half(), q.half())
+
+
+def test_serve_smoke_model_on_card_equals_cpu(cuda):
+    """The same fp32 weights on both devices: equal greedy tokens, prefill
+    logits within 1e-4 relative (the card sums in other orders)."""
+    cfg = dataclasses.replace(get_config("llama3.2-3b-smoke"),
+                              dtype="float32")
+    cpu = TF.init_params(cfg, torch.Generator().manual_seed(1), device="cpu")
+    card = copy.deepcopy(cpu).to(cuda)
+    toks = np.random.default_rng(2).integers(0, cfg.vocab_size, (2, 40))
+    outs = [generate(m, cfg, {"tokens": toks}, 8, prefill_impl="kernel",
+                     device=d)[0].cpu() for m, d in ((card, cuda),
+                                                     (cpu, "cpu"))]
+    assert torch.equal(outs[0], outs[1])
+    logits = []
+    with torch.inference_mode():
+        for m, d in ((card, cuda), (cpu, "cpu")):
+            cache = TF.init_cache(cfg, 2, 40, device=d)
+            logits.append(TF.forward(m, cfg, {"tokens": torch.as_tensor(
+                toks).to(d)}, "prefill", cache=cache,
+                attn_impl="kernel")[0].cpu())
+    assert _rel(logits[0], logits[1]) < 1e-4
