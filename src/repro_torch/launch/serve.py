@@ -1,12 +1,18 @@
 """Serving launcher (port of `repro.launch.serve`): --arch <id>, batched
-prefill + greedy decode against KV caches.
+prefill + greedy decode against KV and state caches.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-3b
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-780m
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch recurrentgemma-2b --prompt-len 4096
 
-Prefill runs the flash-attention kernel (`attn_impl="kernel"`), where the
-reference runs its portable online-softmax stand-in ("chunked"): both
-compute the same exact causal attention.  `--smoke` keeps "naive", as the
-reference does.  Decode runs the attention layer's decode branch.
+Prefill runs the kernels (`attn_impl="kernel"`): attention layers the
+flash-attention kernel, where the reference runs its portable
+online-softmax stand-in ("chunked"), and `ssm` / `rglru` layers the SSD
+and RG-LRU scan kernels, where the reference runs its plain chunked and
+associative scans; each pair computes the same function.  `--smoke`
+keeps "naive", as the reference does.  Decode runs the layers' exact
+single-token branches (`attn_impl="naive"`).
 """
 from __future__ import annotations
 

@@ -5,7 +5,8 @@ The tree's stacked ``blocks`` leaves carry a leading group axis (the
 reference builds them with `jax.vmap`): leaf ``blocks.sub<j>.mix.q.w`` of
 shape ``[groups, d_in, d_out]`` fills parameter ``blocks.<g>.sub<j>.mix.q.w``
 with its slice ``g``.  Dense weights keep the reference's ``[d_in, d_out]``
-layout, norm scales stay fp32 in a bf16 model, and a tied model has no
+layout, norm scales and the recurrent blocks' fp32 leaves (`A_log`, `D`,
+`dt_bias`, `lam`) stay fp32 in a bf16 model, and a tied model has no
 ``lm_head`` (the logits use ``embed``).
 """
 from __future__ import annotations

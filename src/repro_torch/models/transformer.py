@@ -1,6 +1,7 @@
 """The LM stack (port of `repro.models.transformer`), for the families the
-port has so far: dense attention models (full or local attention,
-dense SwiGLU FFNs).
+port has so far: dense attention models (full or local attention, dense
+SwiGLU FFNs), Mamba-2 SSD models (`ssm` blocks) and Griffin hybrids
+(`rglru` and local-attention blocks).
 
 The reference groups layers into repeating "pattern" super-blocks and
 scans them; here the groups are an `nn.ModuleList` looped over in Python,
@@ -10,16 +11,24 @@ is the reference's ``blocks.sub<j>.mix.q.w[g]``).  The reference's
 sharding hook (`constrain`) is the identity on one device and is dropped.
 
 Not ported yet, and raising `NotImplementedError` (ROADMAP queue 1 item
-13): the `rglru` and `ssm` block kinds, MoE FFNs, encoder-decoder models
-and modality frontends.
+13): MoE FFNs, encoder-decoder models and modality frontends.
 
 Modes:
   train    - full sequence, loss-ready logits
-  prefill  - full sequence + populates the KV caches
+  prefill  - full sequence + populates the KV / state caches
   decode   - single token step against the caches
 
+`attn_impl` picks the attention implementation (`layers.attention_apply`)
+and, where the reference has no such choice, the sequence scans: with
+"kernel" the `ssm` blocks' chunked SSD and the `rglru` blocks' LRU scan
+run their kernels (`kernels.ssd_scan`, `kernels.rglru`), which compute
+the same functions as the plain torch forms every other value runs, as
+the reference always does.  The single-token decode step is the exact
+recurrence either way.
+
 Caches are updated in place: `forward` writes each layer's new keys,
-values, `idx` and `base` into the `cache` it was given and returns it.
+values, `idx` and `base`, or conv window and state, into the `cache` it
+was given and returns it.
 """
 from __future__ import annotations
 
@@ -30,6 +39,8 @@ from ..configs.base import ModelConfig
 from ..device import resolve_device
 from . import layers as L
 from .layers import AttnConfig
+from .rglru import RGLRU, rglru_apply, rglru_cache_init
+from .ssm import SSM, ssm_apply, ssm_cache_init
 
 
 def _attn_cfg(cfg: ModelConfig, impl: str, kind: str) -> AttnConfig:
@@ -55,9 +66,6 @@ def _ffn_kind(cfg: ModelConfig, i: int) -> str:
 def _check_ported(cfg: ModelConfig):
     """Raise for the parts of the reference's LM stack not ported yet."""
     todo = "is not ported yet (ROADMAP queue 1 item 13)"
-    for kind in set(cfg.block_pattern) - {"attn", "local"}:
-        raise NotImplementedError(
-            f"{cfg.name}: block kind {kind!r} (models/{kind}.py) {todo}")
     if cfg.moe is not None:
         raise NotImplementedError(f"{cfg.name}: MoE FFN (models/moe.py) "
                                   f"{todo}")
@@ -72,13 +80,22 @@ def _check_ported(cfg: ModelConfig):
 # --- single sub-block --------------------------------------------------------
 
 class Block(nn.Module):
-    """One pre-norm sub-block: attention mixer, then the FFN (`_sub_init`)."""
+    """One pre-norm sub-block: the mixer of its kind (attention, SSM or
+    RG-LRU), then the FFN (`_sub_init`)."""
 
     def __init__(self, cfg: ModelConfig, kind: str, ffn: str, device=None):
         super().__init__()
         dtype = cfg.torch_dtype
         self.norm1 = L.RMSNorm(cfg.d_model, device)
-        self.mix = L.Attention(_attn_cfg(cfg, "naive", kind), dtype, device)
+        if kind in ("attn", "local"):
+            self.mix = L.Attention(_attn_cfg(cfg, "naive", kind), dtype,
+                                   device)
+        elif kind == "rglru":
+            self.mix = RGLRU(cfg.d_model, cfg.rglru, dtype, device)
+        elif kind == "ssm":
+            self.mix = SSM(cfg.d_model, cfg.ssm, dtype, device)
+        else:
+            raise ValueError(kind)
         if ffn == "dense":
             self.norm2 = L.RMSNorm(cfg.d_model, device)
             self.ffn = L.SwiGLU(cfg.d_model, cfg.d_ff, dtype, cfg.use_bias,
@@ -90,8 +107,15 @@ class Block(nn.Module):
 def _sub_apply(p: Block, cfg: ModelConfig, kind: str, ffn: str, impl: str,
                x, positions, inv_freq, cache):
     h = L.rmsnorm(p.norm1, x, cfg.norm_eps)
-    acfg = _attn_cfg(cfg, impl, kind)
-    mixed, _ = L.attention_apply(p.mix, acfg, h, positions, inv_freq, cache)
+    if kind in ("attn", "local"):
+        mixed, _ = L.attention_apply(p.mix, _attn_cfg(cfg, impl, kind), h,
+                                     positions, inv_freq, cache)
+    elif kind == "rglru":
+        mixed, _ = rglru_apply(p.mix, h, cfg.rglru, cache,
+                               use_kernel=impl == "kernel")
+    else:
+        mixed, _ = ssm_apply(p.mix, h, cfg.ssm, cfg.d_model, cache,
+                             use_kernel=impl == "kernel")
     x = x + mixed
     if ffn == "dense":
         h2 = L.rmsnorm(p.norm2, x, cfg.norm_eps)
@@ -101,6 +125,12 @@ def _sub_apply(p: Block, cfg: ModelConfig, kind: str, ffn: str, impl: str,
 
 def _sub_cache_init(cfg: ModelConfig, kind: str, batch, max_len, dtype,
                     device, lead=()):
+    if kind == "rglru":
+        return rglru_cache_init(batch, cfg.d_model, cfg.rglru, dtype, device,
+                                lead)
+    if kind == "ssm":
+        return ssm_cache_init(batch, cfg.d_model, cfg.ssm, dtype, device,
+                              lead)
     W = min(cfg.local_window, max_len) if kind == "local" \
         and cfg.local_window else max_len
     shape = (*lead, batch, W, cfg.num_kv_heads, cfg.hd)
@@ -152,16 +182,17 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, device=None):
     """A model with random weights, drawn by `generator` (on its own
     device) and placed on `device` (CUDA unless the caller passes
     ``device="cpu"``).  Embeddings are truncated normal of std 1, dense
-    weights of std 1/sqrt(d_in), an untied head of std 1/sqrt(d_model), as
-    in the reference; the numbers differ from the reference's, whose
-    generator is JAX's."""
+    weights of std 1/sqrt(d_in), an untied head of std 1/sqrt(d_model), the
+    SSM and RG-LRU blocks' other weights as their `reset` says, as in the
+    reference; the numbers differ from the reference's, whose generator is
+    JAX's."""
     device = resolve_device(device)
     model = Transformer(cfg, device)
     with torch.no_grad():
         model.embed.copy_(L.truncated_normal(
             generator, model.embed.shape, model.embed.dtype, 1.0))
         for module in model.modules():
-            if isinstance(module, L.Dense):
+            if isinstance(module, (L.Dense, SSM, RGLRU)):
                 module.reset(generator)
         if model.lm_head is not None:
             model.lm_head.copy_(L.truncated_normal(
@@ -171,9 +202,9 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, device=None):
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, device=None):
-    """Zeroed KV caches in the reference's layout: ``prelude`` / ``postlude``
-    lists of per-layer dicts and ``blocks.sub<j>`` dicts stacked over the
-    groups."""
+    """Zeroed KV / state caches in the reference's layout: ``prelude`` /
+    ``postlude`` lists of per-layer dicts and ``blocks.sub<j>`` dicts
+    stacked over the groups."""
     _check_ported(cfg)
     device = resolve_device(device)
     dtype = cfg.torch_dtype
@@ -251,4 +282,9 @@ def _first_idx(cache):
                 break
             if "idx" in sub:
                 return sub["idx"][0]
-    return torch.zeros((), dtype=torch.int32)
+    # no attention layer (positions are unused): a zero on the cache's
+    # device
+    caches = cache["prelude"] + cache["postlude"] \
+        + list(cache.get("blocks", {}).values())
+    device = next(iter(caches[0].values())).device
+    return torch.zeros((), dtype=torch.int32, device=device)

@@ -1,7 +1,7 @@
 """Tests of the port that need the card (marker `cuda`; they skip where
 `torch.cuda.is_available()` is false, since a CUDA kernel has no CPU mode):
-the netsim kernels and the simulator, the flash-attention kernel and the
-served LM.
+the netsim kernels and the simulator, the flash-attention, SSD scan and
+RG-LRU scan kernels and the served LMs.
 
 The file imports neither jax nor the reference package, so it runs on the
 machine with the card, where JAX is not installed (`tests/conftest.py`
@@ -24,6 +24,10 @@ from repro_torch.kernels.flash_attention import attention_ref
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.netsim import (cycle_core, cycle_core_ref, grant,
                                        grant_ref)
+from repro_torch.kernels.rglru import ops as rglru_ops
+from repro_torch.kernels.rglru import rglru_scan_ref
+from repro_torch.kernels.ssd_scan import ops as ssd_ops
+from repro_torch.kernels.ssd_scan import ssd_ref
 from repro_torch.launch.serve import generate
 from repro_torch.models import transformer as TF
 
@@ -183,11 +187,66 @@ def test_flash_attention_kernel_rejects_what_it_does_not_take(cuda):
         fa_ops.flash_attention(q.half(), q.half(), q.half())
 
 
-def test_serve_smoke_model_on_card_equals_cpu(cuda):
+def _ssd_inputs(g, B, S, H, P, N, dtype, device):
+    x = (torch.randn((B, S, H, P), generator=g, device=device) * 0.5)
+    dt = torch.nn.functional.softplus(
+        torch.randn((B, S, H), generator=g, device=device))
+    A = torch.randn((H,), generator=g, device=device).abs() + 0.1
+    Bm, Cm = (torch.randn((B, S, N), generator=g, device=device) * 0.3
+              for _ in range(2))
+    return x.to(dtype), dt, A, Bm.to(dtype), Cm.to(dtype)
+
+
+@pytest.mark.parametrize("B,S,H,P,N", [
+    (1, 64, 2, 16, 16), (2, 100, 2, 64, 32), (3, 192, 2, 32, 16),
+    (1, 160, 2, 32, 16), (2, 37, 3, 16, 16), (1, 300, 4, 64, 128)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_scan_kernel_matches_plain_version(cuda, B, S, H, P, N, dtype):
+    g = torch.Generator(device=cuda).manual_seed(S * P + N)
+    args = _ssd_inputs(g, B, S, H, P, N, dtype, cuda)
+    before = ssd_ops.ssd_scan.launches
+    y, state = ssd_ops.ssd_scan(*args, return_state=True)
+    torch.cuda.synchronize()
+    assert ssd_ops.ssd_scan.launches == before + 1
+    assert y.dtype == dtype and y.shape == args[0].shape
+    want_y, want_s = ssd_ref(*args)
+    assert _rel(y, want_y) < (1e-4 if dtype == torch.float32 else 2e-2)
+    assert _rel(state, want_s) < 1e-4
+
+
+def test_ssd_scan_kernel_rejects_what_it_does_not_take(cuda):
+    g = torch.Generator(device=cuda).manual_seed(0)
+    x, dt, A, Bm, Cm = _ssd_inputs(g, 1, 8, 2, 24, 16, torch.float32, cuda)
+    with pytest.raises(ValueError, match="head_dim"):
+        ssd_ops.ssd_scan(x, dt, A, Bm, Cm)
+    x, dt, A, Bm, Cm = _ssd_inputs(g, 1, 8, 2, 16, 16, torch.float32, cuda)
+    with pytest.raises(ValueError, match="float32"):
+        ssd_ops.ssd_scan(x, dt.half(), A, Bm, Cm)
+
+
+@pytest.mark.parametrize("B,S,R", [(1, 128, 128), (2, 300, 192),
+                                   (2, 64, 512), (1, 37, 2560)])
+def test_rglru_kernel_matches_plain_version(cuda, B, S, R):
+    g = torch.Generator(device=cuda).manual_seed(R + S)
+    a = torch.sigmoid(torch.randn((B, S, R), generator=g, device=cuda)) \
+        * 0.2 + 0.79
+    b = torch.randn((B, S, R), generator=g, device=cuda) * 0.1
+    before = rglru_ops.rglru_scan.launches
+    got = rglru_ops.rglru_scan(a, b)
+    torch.cuda.synchronize()
+    assert rglru_ops.rglru_scan.launches == before + 1
+    assert _rel(got, rglru_scan_ref(a, b)) < 1e-5
+    a = torch.full((1, 2048, 128), 0.999, device=cuda)
+    b = torch.full((1, 2048, 128), 0.01, device=cuda)
+    assert _rel(rglru_ops.rglru_scan(a, b), rglru_scan_ref(a, b)) < 1e-5
+
+
+@pytest.mark.parametrize("arch", ["llama3.2-3b", "mamba2-780m",
+                                  "recurrentgemma-2b"])
+def test_serve_smoke_model_on_card_equals_cpu(cuda, arch):
     """The same fp32 weights on both devices: equal greedy tokens, prefill
     logits within 1e-4 relative (the card sums in other orders)."""
-    cfg = dataclasses.replace(get_config("llama3.2-3b-smoke"),
-                              dtype="float32")
+    cfg = dataclasses.replace(get_config(arch + "-smoke"), dtype="float32")
     cpu = TF.init_params(cfg, torch.Generator().manual_seed(1), device="cpu")
     card = copy.deepcopy(cpu).to(cuda)
     toks = np.random.default_rng(2).integers(0, cfg.vocab_size, (2, 40))

@@ -336,8 +336,7 @@ def test_serve_main_runs_on_cpu_and_needs_cuda_by_default(capsys):
             params_from_jax({}, treg.get_config("llama3.2-3b-smoke"))
 
 
-@pytest.mark.parametrize("arch", ["mamba2-780m", "recurrentgemma-2b",
-                                  "deepseek-moe-16b", "seamless-m4t-medium",
+@pytest.mark.parametrize("arch", ["deepseek-moe-16b", "seamless-m4t-medium",
                                   "phi-3-vision-4.2b"])
 def test_unported_families_raise(arch):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
