@@ -7,7 +7,8 @@
 Phases (any failure ends the run with a nonzero exit):
 
 1. the card (nvidia-smi name and power limit, torch and CUDA versions) and
-   the build of every CUDA kernel of the path from this checkout's sources;
+   the build of every CUDA kernel of the path from this checkout's sources,
+   with HGMMA instructions in the flash library's SASS;
 2. the PRNG on the card: Threefry-2x32 known answers, and split / uniform /
    randint / bernoulli on CUDA equal to the same calls on the CPU;
 3. each kernel against its plain PyTorch version on the card, bit for bit,
@@ -33,15 +34,20 @@ Phases (any failure ends the run with a nonzero exit):
    field for field, for all three steps across routing modes, cold and
    warm faults and the reaper, plus a compact run pinned below its live
    peak, which must escalate;
-6. the flash-attention kernel against its plain version on the card: the
-   shapes of the reference's kernel tests in fp32 and bf16, windows 32
-   and 128, non-causal with Sk = 96 and with a ragged Sk, and the serving
-   path's prefill shape (B = 4, S = 2048, H = 24, KV = 8, hd = 128) in
-   fp32 and bf16, each output row held to its own size; the bf16 serving
-   shape is also timed beside the plain version and the SDPA call;
-   the recurrentgemma-2b prefill's local attention (B = 4, S = 4096,
-   H = 10, KV = 1, hd = 256, window 2048, bf16) is checked and timed the
-   same way, beside SDPA with the window as a mask;
+6. the flash-attention kernels against their plain version on the card,
+   each case on the kernel the (dtype, head_dim) rule names (bf16 at hd
+   64, 128 and 256 on the tensor-core kernel, the rest on the FMA
+   kernel): the shapes of the reference's kernel tests in fp32 and bf16,
+   windows 32 and 128, non-causal with Sk = 96 and with a ragged Sk, the
+   tensor-core kernel's edges in bf16 (Sq, Sk off its tiles, GQA with 3
+   groups, MQA, windows 100 and 2048, non-causal Sq != Sk), and the
+   serving path's prefill shape (B = 4, S = 2048, H = 24, KV = 8,
+   hd = 128) in fp32 and bf16, each output row held to its own size; the
+   bf16 serving shape is also timed beside the FMA kernel on the same
+   inputs, the plain version and the SDPA call; the recurrentgemma-2b
+   prefill's local attention (B = 4, S = 4096, H = 10, KV = 1, hd = 256,
+   window 2048, bf16) is checked and timed the same way, beside SDPA with
+   the window as a mask;
 7. the SSD scan kernel against its plain version `ssd_ref` on the card:
    the shapes of the reference's kernel tests (property sweep and chunk
    invariance) in fp32, and the mamba2-780m prefill's shape (B = 4,
@@ -57,7 +63,8 @@ Phases (any failure ends the run with a nonzero exit):
    the kernels: `llama3.2-3b` (prompt 2048; one flash_attention launch a
    layer), `mamba2-780m` (prompt 2048; one ssd_scan launch a layer) and
    `recurrentgemma-2b` (prompt 4096, twice its window; one rglru launch a
-   recurrent layer, one flash_attention launch a local layer); each then
+   recurrent layer, one flash_attention launch a local layer), every
+   flash_attention launch on the tensor-core kernel; each then
    runs a kernel prefill and one decode step against the same cache,
    their last-position logits held to one naive forward over the prompt
    and that token: 2e-2 in bf16 (with SSM layers, or twice the naive
@@ -154,6 +161,19 @@ def phase_build():
             if any(w in line for w in ("entry function", "registers",
                                        "spill")):
                 print(f"[build]   {line.strip()}")
+    hgmma = sass_count(build.build_record(fa_ops.LIBRARY)["path"], "HGMMA")
+    check(hgmma > 0, "no HGMMA instruction in the flash_attention library")
+    print(f"[build] flash_attention SASS (cuobjdump -sass): {hgmma} HGMMA "
+          f"instructions")
+
+
+def sass_count(path, opcode) -> int:
+    """Lines of `cuobjdump -sass` of a built library that hold `opcode`."""
+    import shutil
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    out = subprocess.run([tool, "-sass", str(path)], capture_output=True,
+                         text=True, check=True)
+    return sum(opcode in line for line in out.stdout.splitlines())
 
 
 def phase_prng(device):
@@ -491,6 +511,9 @@ def _reset_launches():
     ops.grant.launches = ops.cycle_core.launches = 0
     for fn in _lm_kernels().values():
         fn.launches = 0
+    by_kernel = _lm_kernels()["flash_attention"].launches_by_kernel
+    for kernel in by_kernel:
+        by_kernel[kernel] = 0
 
 
 def phase_main_path(net, device):
@@ -729,7 +752,7 @@ def _fa_cases():
     shapes = [(1, 128, 128, 2, 2, 64), (2, 256, 256, 4, 2, 64),
               (2, 192, 320, 4, 1, 80), (1, 512, 512, 8, 8, 128),
               (1, 64, 64, 10, 1, 256)]
-    cases = [(f"sweep {s}", s, dt, dict(causal=True))
+    cases = [("sweep", s, dt, dict(causal=True))
              for s in shapes for dt in ("float32", "bfloat16")]
     cases += [(f"window {w}", (2, 256, 256, 4, 2, 64), "float32",
                dict(causal=True, window=w)) for w in (32, 128)]
@@ -737,6 +760,23 @@ def _fa_cases():
                dict(causal=False)),
               ("non-causal ragged Sk=200", (1, 128, 200, 2, 2, 64),
                "float32", dict(causal=False))]
+    # the tensor-core kernel's edges, bf16: Sq and Sk off its tiles, GQA
+    # with 3 groups and MQA, windows off the tile and at the served
+    # 2,048 over 4,096 keys, non-causal with Sq != Sk
+    cases += [(label, shape, "bfloat16", kw) for label, shape, kw in (
+        ("tile edges", (2, 200, 333, 6, 2, 128), dict(causal=True)),
+        ("tile edges MQA", (2, 200, 333, 4, 1, 64), dict(causal=True)),
+        ("GQA 3 groups", (2, 256, 256, 6, 2, 128), dict(causal=True)),
+        ("MQA", (1, 192, 192, 4, 1, 256), dict(causal=True)),
+        ("window 100", (1, 333, 333, 4, 1, 256),
+         dict(causal=True, window=100)),
+        ("window 100", (1, 300, 300, 6, 2, 128),
+         dict(causal=True, window=100)),
+        ("window 2048", (1, 4096, 4096, 2, 1, 256),
+         dict(causal=True, window=2048)),
+        ("non-causal Sq < Sk", (2, 200, 333, 6, 2, 128), dict(causal=False)),
+        ("non-causal Sq > Sk", (2, 333, 200, 4, 1, 256), dict(causal=False)),
+        ("non-causal Sq > Sk", (1, 333, 200, 2, 2, 64), dict(causal=False)))]
     cases += [("serving prefill", FA_LLAMA, dt, dict(causal=True))
               for dt in ("float32", "bfloat16")]
     cases += [("recurrentgemma prefill", FA_GEMMA, "bfloat16",
@@ -774,9 +814,15 @@ def phase_flash_attention(device):
     worst, timed = 0.0, {}
     for i, (label, shape, dtype, kw) in enumerate(_fa_cases()):
         q, k, v = _fa_inputs(i, shape, dtype, device)
+        before = dict(ops.flash_attention.launches_by_kernel)
         got = ops.flash_attention(q, k, v, **kw)
         want = attention_ref(q, k, v, **kw)
         torch.cuda.synchronize()
+        ran = [name for name, n in ops.flash_attention.launches_by_kernel
+               .items() if n != before[name]]
+        kernel = ops.kernel_for(q.dtype, shape[-1])
+        check(ran == [kernel], f"flash_attention {label}: ran {ran}, the "
+                               f"rule names {kernel}")
         check(bool(torch.isfinite(got).all()), f"flash_attention {label}: "
                                                f"non-finite output")
         diff, rel = _row_rel(got, want)
@@ -784,8 +830,9 @@ def phase_flash_attention(device):
         check(rel < FA_TOL[dtype], f"flash_attention {label} {dtype}: "
                                    f"relative error {rel} >= {FA_TOL[dtype]}")
         worst = max(worst, diff)
-        print(f"[flash] {label} {dtype} {kw}: kernel == attention_ref "
-              f"(max abs {diff:.3e}, relative per row {rel:.3e})")
+        print(f"[flash] {label} {shape} {dtype} {kw}: {kernel} kernel == "
+              f"attention_ref (max abs {diff:.3e}, relative per row "
+              f"{rel:.3e})")
         if shape in (FA_LLAMA, FA_GEMMA) and dtype == "bfloat16":
             timed[label] = (q, k, v, kw)
         del q, k, v
@@ -810,6 +857,7 @@ def phase_flash_timing(q, k, v, kw):
     B, S, H, hd = q.shape
     window = kw.get("window")
     ms = cuda_ms(lambda: ops.flash_attention(q, k, v, **kw), 10)
+    fma_ms = cuda_ms(lambda: fma_kernel(q, k, v, **kw), 3)
     plain_ms = cuda_ms(lambda: attention_ref(q, k, v, **kw), 3)
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
     if window is None:
@@ -827,13 +875,35 @@ def phase_flash_timing(q, k, v, kw):
     bytes_ms = nbytes / H100_BYTES_PER_S * 1e3
     bound_ms = max(ops_ms, bytes_ms)
     print(f"[flash] B={B} S={S} H={H} KV={k.shape[2]} hd={hd} window "
-          f"{window} bf16: kernel {ms:.4f} ms/launch, plain {plain_ms:.4f} "
-          f"ms, SDPA {library_ms:.4f} ms, bound {bound_ms * 1e3:.2f} us "
+          f"{window} bf16: {ops.kernel_for(q.dtype, hd)} kernel {ms:.4f} "
+          f"ms/launch ({ops_count / ms * 1e-9:.1f} TFLOP/s, "
+          f"{bound_ms / ms:.3f} of the bound), the FMA kernel on the same "
+          f"bf16 inputs {fma_ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA "
+          f"{library_ms:.4f} ms, bound {bound_ms * 1e3:.2f} us "
           f"({ops_count} operations: {ops_ms * 1e3:.2f} us at 989.4 TFLOP/s; "
           f"{nbytes} bytes: {bytes_ms * 1e3:.2f} us at 3.35 TB/s)")
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                 bound_by="operations" if ops_ms >= bytes_ms else "bytes",
-                library_ms=library_ms)
+                library_ms=library_ms, fma_ms=fma_ms)
+
+
+def fma_kernel(q, k, v, causal=True, window=None):
+    """The FMA kernel (csrc/flash_attention.cu) launched on bf16 inputs
+    that the dispatch rule sends to the tensor-core kernel: the yardstick
+    of the earlier design, timed beside it and used nowhere else."""
+    import math
+    import torch
+    from repro_torch.kernels.flash_attention import ops
+    B, Sq, H, hd = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    o = torch.empty_like(q)
+    rc = ops.library().flash_attention_fwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), 1, B, Sq,
+        Sk, H, KV, hd, 1.0 / math.sqrt(hd), int(causal),
+        int(window is not None), window or 0,
+        torch.cuda.current_stream().cuda_stream)
+    check(rc == 0, f"FMA flash kernel launch failed: CUDA error {rc}")
+    return o
 
 
 # the SSD scan's shape (B, S, H, P, N) on the mamba2-780m prefill
@@ -1011,6 +1081,7 @@ def phase_serve(device, arch, S, profile=False):
     a few decode steps."""
     import torch
     from repro_torch.configs.registry import get_config
+    from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.launch.serve import generate
     from repro_torch.models import transformer as TF
     cfg = get_config(arch)
@@ -1031,6 +1102,7 @@ def phase_serve(device, arch, S, profile=False):
     out, prefill_s, decode_ms = generate(model, cfg, {"tokens": tokens}, gen,
                                          prefill_impl="kernel", device=device)
     launches = {name: fn.launches for name, fn in kernels.items()}
+    by_kernel = dict(kernels["flash_attention"].launches_by_kernel)
     peak = torch.cuda.max_memory_allocated()
     check(tuple(out.shape) == (B, gen), f"generated shape {tuple(out.shape)}")
     check(bool(((out >= 0) & (out < cfg.vocab_size)).all()),
@@ -1038,6 +1110,15 @@ def phase_serve(device, arch, S, profile=False):
     check(launches == expected_launches(cfg),
           f"{arch}: launches {launches} in one prefill, want "
           f"{expected_launches(cfg)} (one a layer of the kernel's kind)")
+    # every attention layer of a bf16 prefill at hd 128 or 256 on the
+    # tensor-core kernel, none on the FMA kernel
+    want = {"wgmma": 0, "fma": 0}
+    if launches["flash_attention"]:
+        want[fa_ops.kernel_for(cfg.torch_dtype, cfg.hd)] = \
+            launches["flash_attention"]
+    check(by_kernel == want, f"{arch}: flash_attention launches by kernel "
+                             f"{by_kernel}, want {want}")
+    launches["flash_attention_by_kernel"] = by_kernel
     print(f"[serve] {arch} batch {B}, prompt {S}, {gen} tokens: prefill "
           f"{prefill_s * 1e3:.2f} ms ({B * S / prefill_s:.1f} tokens/s), "
           f"decode {decode_ms:.3f} ms/token ({B * 1e3 / decode_ms:.1f} "
@@ -1236,10 +1317,15 @@ def main(argv=None):
     # recurrentgemma's local layers (hd 256, window 2048) their own
     fa_entry = kernel_entry(
         "flash_attention",
-        "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
+        "src/repro_torch/kernels/flash_attention/csrc/"
+        "flash_attention_wgmma.cu",
         "src/repro/kernels/flash_attention/kernel.py:25",
         sum(n["flash_attention"] for n in served.values()), fa_err,
         fa_t["serving prefill"])
+    fa_entry["launches_by_kernel"] = {
+        kernel: sum(n["flash_attention_by_kernel"][kernel]
+                    for n in served.values())
+        for kernel in ("wgmma", "fma")}
     fa_entry["by_path"] = {
         "llama3.2-3b": dict(fa_t["serving prefill"],
                             launches=served["llama3.2-3b"]["flash_attention"]),

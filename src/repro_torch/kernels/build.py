@@ -37,15 +37,16 @@ def _nvcc() -> str:
 
 def build_library(name: str, sources: list[Path]) -> tuple[Path, dict]:
     """Compile `sources` into ``build/kernels/lib<name>-<hash>.so`` unless
-    that file exists.  Returns the path and a record with the build's
-    wall time (0.0 when reused) and the compiler's `-Xptxas -v` report."""
+    that file exists.  Returns the path and a record with the path, the
+    build's wall time (0.0 when reused) and the compiler's `-Xptxas -v`
+    report."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for src in sources:
         h.update(Path(src).read_bytes())
     so = BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
     log = so.with_suffix(".log")
     if so.exists():
-        return so, dict(seconds=0.0, report=log.read_text()
+        return so, dict(path=so, seconds=0.0, report=log.read_text()
                         if log.exists() else "")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = so.with_name(f"{so.stem}.{os.getpid()}.tmp.so")
@@ -58,7 +59,7 @@ def build_library(name: str, sources: list[Path]) -> tuple[Path, dict]:
                            f"(exit {proc.returncode}):\n{proc.stderr}")
     log.write_text(proc.stderr)
     os.replace(tmp, so)
-    return so, dict(seconds=seconds, report=proc.stderr)
+    return so, dict(path=so, seconds=seconds, report=proc.stderr)
 
 
 def load_library(name: str, sources: list[Path]) -> ctypes.CDLL:

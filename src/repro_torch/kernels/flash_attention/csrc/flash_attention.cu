@@ -1,5 +1,7 @@
 // Causal GQA flash-attention forward with an optional sliding window,
-// written for Hopper (sm_90a).
+// written for Hopper (sm_90a) on the fp32 FMA units.  `ops.kernel_for`
+// sends fp32 here, and bf16 at head dims 16 and 80; bf16 at 64, 128 and
+// 256 runs on the tensor cores in flash_attention_wgmma.cu.
 //
 // Replaces the TPU kernel `_kernel` / `flash_attention_pallas` in
 // src/repro/kernels/flash_attention/kernel.py (the pl.pallas_call reached
@@ -45,8 +47,9 @@
 // 1.03e11 operations, 104 us at the H100's 989 TFLOP/s for bf16, against
 // 134 MB of q, k, v and o, 40 us at 3.35 TB/s: operations bound it.  This
 // kernel runs the products on the fp32 FMA units from shared memory, far
-// below that bound; wgmma with TMA-fed, pipelined tiles is the later work
-// that approaches it.
+// below that bound (4.0 ms at that shape in bf16 on an H100); the
+// tensor-core kernel in flash_attention_wgmma.cu is the one that
+// approaches it, and serves that shape.
 #include <cstdint>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>

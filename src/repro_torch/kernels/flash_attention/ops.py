@@ -2,12 +2,15 @@
 `repro.kernels.flash_attention.ops`).
 
 `flash_attention` dispatches on the device of its tensors: CPU tensors go
-to the plain version `ref.attention_ref`; CUDA tensors launch the
-hand-written kernel in ``csrc/flash_attention.cu`` or raise — there is no
-fallback.  It replaces the TPU kernel `flash_attention_pallas` of
-`repro.kernels.flash_attention.kernel`.  Unlike the reference wrapper it
-pads nothing: the kernel takes the true head_dim and masks on the true
-sequence lengths.
+to the plain version `ref.attention_ref`; CUDA tensors launch one of two
+hand-written kernels or raise — there is no fallback.  Which kernel is a
+static rule on (dtype, head_dim), `kernel_for`: bf16 at head_dim 64, 128
+or 256 runs the tensor-core kernel in ``csrc/flash_attention_wgmma.cu``
+(wgmma, TMA-fed, warp-specialised); fp32, and bf16 at 16 or 80, the FMA
+kernel in ``csrc/flash_attention.cu``.  Both replace the TPU kernel
+`flash_attention_pallas` of `repro.kernels.flash_attention.kernel`.
+Unlike the reference wrapper they pad nothing: they take the true
+head_dim and mask on the true sequence lengths.
 """
 from __future__ import annotations
 
@@ -21,23 +24,46 @@ from ..build import load_library
 from .ref import attention_ref
 
 LIBRARY = "flash_attention"
-SOURCES = [Path(__file__).parent / "csrc" / "flash_attention.cu"]
-# the head dims the kernel is instantiated for (csrc/flash_attention.cu)
-HEAD_DIMS = (16, 64, 80, 128, 256)
+SOURCES = [Path(__file__).parent / "csrc" / name
+           for name in ("flash_attention.cu", "flash_attention_wgmma.cu")]
+# the head dims each kernel is instantiated for
+HEAD_DIMS = (16, 64, 80, 128, 256)      # csrc/flash_attention.cu, fp32/bf16
+WGMMA_HEAD_DIMS = (64, 128, 256)        # csrc/flash_attention_wgmma.cu, bf16
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_P, _I = ctypes.c_void_p, ctypes.c_int
-_ARGTYPES = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, ctypes.c_float, _I,
-             _I, _I, _P]
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_ARGTYPES = {
+    "flash_attention_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F,
+                            _I, _I, _I, _P],
+    "flash_attention_wgmma_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                  _F, _I, _I, _I, _P]}
 
 
-def library() -> ctypes.CDLL:
-    """The built and loaded kernel library (built at first use)."""
-    lib = load_library(LIBRARY, SOURCES)
-    fn = lib.flash_attention_fwd
-    if fn.argtypes is None:
-        fn.argtypes = _ARGTYPES
-        fn.restype = ctypes.c_int
+def library(name: str = LIBRARY, sources=SOURCES) -> ctypes.CDLL:
+    """The built and loaded kernel library (built at first use).  Another
+    `name` with edited `sources` loads a variant of it beside it, as
+    ``tools/flash_ablation.py`` does."""
+    lib = load_library(name, sources)
+    for name, argtypes in _ARGTYPES.items():
+        fn = getattr(lib, name)
+        if fn.argtypes is None:
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
     return lib
+
+
+def kernel_for(dtype, head_dim) -> str:
+    """The kernel a CUDA call at (dtype, head_dim) launches: "wgmma" for
+    bf16 at a head dim of `WGMMA_HEAD_DIMS`, "fma" for fp32 and for bf16
+    at the other head dims of `HEAD_DIMS`.  Raises on what neither takes."""
+    if dtype not in _DTYPES:
+        raise ValueError(f"flash_attention: q, k, v must all be float32 or "
+                         f"all bfloat16, got {dtype}")
+    if head_dim not in HEAD_DIMS:
+        raise ValueError(f"flash_attention: head_dim {head_dim} not in the "
+                         f"kernels' {HEAD_DIMS}")
+    if dtype == torch.bfloat16 and head_dim in WGMMA_HEAD_DIMS:
+        return "wgmma"
+    return "fma"
 
 
 def _kernel_operand(x):
@@ -52,7 +78,8 @@ def flash_attention(q, k, v, causal=True, window=None):
     dtype, fp32 or bf16.  Query head h reads KV head h // (H // KV); the
     window applies to causal attention only.
 
-    Every CUDA launch adds one to `flash_attention.launches`."""
+    Every CUDA launch adds one to `flash_attention.launches` and to
+    `flash_attention.launches_by_kernel[kernel_for(dtype, hd)]`."""
     devices = {x.device for x in (q, k, v)}
     if len(devices) != 1:
         raise ValueError(f"flash_attention: inputs on several devices "
@@ -71,29 +98,33 @@ def flash_attention(q, k, v, causal=True, window=None):
     if k.shape[0] != B or k.shape[3] != hd or KV == 0 or H % KV:
         raise ValueError(f"flash_attention: k/v {tuple(k.shape)} do not fit "
                          f"q {tuple(q.shape)}")
-    if not (q.dtype == k.dtype == v.dtype) or q.dtype not in _DTYPES:
+    if not (q.dtype == k.dtype == v.dtype):
         raise ValueError(f"flash_attention: q, k, v must all be float32 or "
                          f"all bfloat16, got {q.dtype}, {k.dtype}, {v.dtype}")
-    if hd not in HEAD_DIMS:
-        raise ValueError(f"flash_attention: head_dim {hd} not in the "
-                         f"kernel's {HEAD_DIMS}")
+    kernel = kernel_for(q.dtype, hd)
     if B == 0 or Sq == 0 or Sk == 0 or H > 65535 or B > 65535:
         raise ValueError(f"flash_attention: unsupported problem B={B} "
                          f"Sq={Sq} Sk={Sk} H={H}")
     q, k, v = (_kernel_operand(x) for x in (q, k, v))
     o = torch.empty_like(q)
+    shape = (B, Sq, Sk, H, KV, hd, 1.0 / math.sqrt(hd), int(bool(causal)),
+             int(window is not None), int(window) if window is not None else 0)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = library().flash_attention_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            _DTYPES[q.dtype], B, Sq, Sk, H, KV, hd, 1.0 / math.sqrt(hd),
-            int(bool(causal)), int(window is not None),
-            int(window) if window is not None else 0, stream)
+        ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr())
+        if kernel == "wgmma":
+            rc = library().flash_attention_wgmma_fwd(*ptrs, *shape, stream)
+        else:
+            rc = library().flash_attention_fwd(*ptrs, _DTYPES[q.dtype],
+                                               *shape, stream)
     if rc != 0:
-        raise RuntimeError(f"flash_attention kernel launch failed: CUDA error "
-                           f"{rc}")
+        raise RuntimeError(f"flash_attention {kernel} kernel launch failed: "
+                           f"error {rc} (a CUDA error, or 10000 + the "
+                           f"driver's CUresult when a tensor map failed)")
     flash_attention.launches += 1
+    flash_attention.launches_by_kernel[kernel] += 1
     return o
 
 
 flash_attention.launches = 0
+flash_attention.launches_by_kernel = {"wgmma": 0, "fma": 0}

@@ -171,12 +171,53 @@ def test_flash_attention_kernel_matches_plain_version(cuda, B, Sq, Sk, H, KV,
     g = torch.Generator(device=cuda).manual_seed(Sq * hd + Sk)
     q, k, v = (torch.randn(s, generator=g, device=cuda).to(dtype)
                for s in ((B, Sq, H, hd), (B, Sk, KV, hd), (B, Sk, KV, hd)))
+    kernel = fa_ops.kernel_for(dtype, hd)
     before = fa_ops.flash_attention.launches
+    before_kernel = fa_ops.flash_attention.launches_by_kernel[kernel]
     got = fa_ops.flash_attention(q, k, v, **kw)
     torch.cuda.synchronize()
     assert fa_ops.flash_attention.launches == before + 1
+    assert (fa_ops.flash_attention.launches_by_kernel[kernel]
+            == before_kernel + 1)
     assert got.dtype == dtype and got.shape == q.shape
     assert _rel(got, attention_ref(q, k, v, **kw)) < FA_TOL[dtype]
+
+
+def _row_rel(got, want):
+    """The largest over output rows of each row's largest |got - want|
+    over that row's largest |want|."""
+    err = (got.float() - want.float()).abs().amax(-1)
+    return float((err / want.float().abs().amax(-1).clamp(min=1e-6)).max())
+
+
+@pytest.mark.parametrize("B,Sq,Sk,H,KV,hd,kw", [
+    (1, 128, 128, 2, 2, 64, dict(causal=True)),
+    (2, 256, 256, 6, 2, 128, dict(causal=True)),      # GQA, 3 groups
+    (1, 192, 192, 4, 1, 256, dict(causal=True)),      # MQA, hd 256
+    (2, 200, 333, 6, 2, 128, dict(causal=True)),      # Sq, Sk off the tile
+    (2, 200, 333, 4, 1, 64, dict(causal=True)),
+    (1, 333, 333, 4, 1, 256, dict(causal=True, window=100)),
+    (1, 300, 300, 6, 2, 128, dict(causal=True, window=100)),
+    (1, 4096, 4096, 2, 1, 256, dict(causal=True, window=2048)),
+    (2, 200, 333, 6, 2, 128, dict(causal=False)),     # non-causal Sq != Sk
+    (2, 333, 200, 4, 1, 256, dict(causal=False)),
+    (1, 333, 200, 2, 2, 64, dict(causal=False)),
+])
+def test_flash_attention_wgmma_kernel_matches_plain_version(cuda, B, Sq, Sk,
+                                                            H, KV, hd, kw):
+    """bf16 at head_dim 64, 128 and 256 runs the tensor-core kernel (and
+    not the FMA kernel), held per output row to the bf16 bar."""
+    g = torch.Generator(device=cuda).manual_seed(Sq * hd + Sk + H)
+    q, k, v = (torch.randn(s, generator=g, device=cuda).to(torch.bfloat16)
+               for s in ((B, Sq, H, hd), (B, Sk, KV, hd), (B, Sk, KV, hd)))
+    before = dict(fa_ops.flash_attention.launches_by_kernel)
+    got = fa_ops.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    after = fa_ops.flash_attention.launches_by_kernel
+    assert after["wgmma"] == before["wgmma"] + 1
+    assert after["fma"] == before["fma"]
+    assert got.dtype == torch.bfloat16 and got.shape == q.shape
+    assert _row_rel(got, attention_ref(q, k, v, **kw)) < FA_TOL[torch.bfloat16]
 
 
 def test_flash_attention_kernel_rejects_what_it_does_not_take(cuda):

@@ -4,6 +4,9 @@ Pallas kernel `fa_ops.flash_attention` in interpret mode, on the shapes,
 windows and non-causal case of `tests/test_kernels.py`, with the same
 inputs made by numpy.  Tolerances as there: 2e-5 relative in fp32, 2e-2 in
 bf16 (the kernel and the plain version round differently in bf16)."""
+import importlib.util
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -91,3 +94,47 @@ def test_flash_attention_rejects_mixed_devices():
     _, (q, k, v) = _inputs(0, 1, 8, 8, 2, 1, 16, "float32")
     with pytest.raises(ValueError):
         pt_ops.flash_attention(q, k.to("meta"), v)
+
+
+@pytest.mark.parametrize("dtype,hd,kernel", [
+    (torch.bfloat16, 64, "wgmma"), (torch.bfloat16, 128, "wgmma"),
+    (torch.bfloat16, 256, "wgmma"), (torch.bfloat16, 16, "fma"),
+    (torch.bfloat16, 80, "fma"), (torch.float32, 16, "fma"),
+    (torch.float32, 64, "fma"), (torch.float32, 80, "fma"),
+    (torch.float32, 128, "fma"), (torch.float32, 256, "fma"),
+    (torch.float32, 24, "head_dim"), (torch.bfloat16, 32, "head_dim"),
+    (torch.float16, 128, "float32"), (torch.float64, 64, "float32"),
+])
+def test_flash_attention_dispatch_rule(dtype, hd, kernel):
+    """The static (dtype, head_dim) rule that picks a CUDA call's kernel:
+    bf16 at 64, 128 and 256 on the tensor-core kernel, fp32 and bf16 at
+    16 and 80 on the FMA kernel; anything else raises (the value names
+    the message)."""
+    if kernel in ("wgmma", "fma"):
+        assert pt_ops.kernel_for(dtype, hd) == kernel
+    else:
+        with pytest.raises(ValueError, match=kernel):
+            pt_ops.kernel_for(dtype, hd)
+
+
+def _load_tool(name):
+    path = Path(__file__).resolve().parents[1] / "tools" / f"{name}.py"
+    spec = importlib.util.spec_from_file_location(name, path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+_ABLATION = _load_tool("flash_ablation")
+
+
+@pytest.mark.parametrize("variant", sorted(_ABLATION.VARIANTS))
+def test_flash_ablation_variant_matches_kernel_source(variant):
+    """``tools/flash_ablation.py`` edits lines of the tensor-core kernel's
+    source by their exact text: each variant's text is there once, and
+    the variant's source differs from the kernel's only by its edit."""
+    source = pt_ops.SOURCES[1].read_text()
+    old, new = _ABLATION.VARIANTS[variant]
+    assert source.count(old) == 1
+    assert _ABLATION.variant_sources(source)[variant] == \
+        source.replace(old, new) != source
