@@ -8,7 +8,7 @@ Phases (any failure ends the run with a nonzero exit):
 
 1. the card (nvidia-smi name and power limit, torch and CUDA versions) and
    the build of every CUDA kernel of the path from this checkout's sources,
-   with HGMMA instructions in the flash library's SASS;
+   with HGMMA instructions in the flash and the SSD libraries' SASS;
 2. the PRNG on the card: Threefry-2x32 known answers, and split / uniform /
    randint / bernoulli on CUDA equal to the same calls on the CPU;
 3. each kernel against its plain PyTorch version on the card, bit for bit,
@@ -40,31 +40,38 @@ Phases (any failure ends the run with a nonzero exit):
    kernel): the shapes of the reference's kernel tests in fp32 and bf16,
    windows 32 and 128, non-causal with Sk = 96 and with a ragged Sk, the
    tensor-core kernel's edges in bf16 (Sq, Sk off its tiles, GQA with 3
-   groups, MQA, windows 100 and 2048, non-causal Sq != Sk), and the
-   serving path's prefill shape (B = 4, S = 2048, H = 24, KV = 8,
+   groups, MQA, windows 100 and 2048, non-causal Sq != Sk), head dim 96
+   (zero-padded to 128) in fp32 and bf16, and the serving path's prefill
+   shape (B = 4, S = 2048, H = 24, KV = 8,
    hd = 128) in fp32 and bf16, each output row held to its own size; the
    bf16 serving shape is also timed beside the FMA kernel on the same
    inputs, the plain version and the SDPA call; the recurrentgemma-2b
    prefill's local attention (B = 4, S = 4096, H = 10, KV = 1, hd = 256,
    window 2048, bf16) is checked and timed the same way, beside SDPA with
    the window as a mask;
-7. the SSD scan kernel against its plain version `ssd_ref` on the card:
-   the shapes of the reference's kernel tests (property sweep and chunk
-   invariance) in fp32, and the mamba2-780m prefill's shape (B = 4,
-   S = 2048, H = 48, P = 64, N = 128) in fp32 and with bf16 x/B/C, y and
-   the final state held to 1e-4 in fp32, y to 2e-2 per output row in
-   bf16; the bf16 serving shape is timed;
+7. the SSD scan kernels against their plain version `ssd_ref` on the
+   card, each case on the kernel the (dtype, P, N) rule names (bf16 on the
+   tensor-core kernel, fp32 on the FMA kernel): the shapes of the
+   reference's kernel tests (property sweep and chunk invariance) in fp32,
+   the tensor-core kernel's edges in bf16 (ragged S, P 16 and 32, N off its
+   64 columns, the strided views of one conv output that `ssm_apply`
+   passes), and the mamba2-780m prefill's shape (B = 4, S = 2048, H = 48,
+   P = 64, N = 128) in fp32, bf16 and bf16 views; y and the final state
+   held to 1e-4 in fp32, y to 2e-2 per output row and the state to 1e-4
+   in bf16; the bf16 serving shape is timed beside the FMA kernel on the
+   same inputs;
 8. the RG-LRU scan kernel against `rglru_scan_ref` on the card: the
    shapes of the reference's kernel tests (with S = 2048 at a = 0.999)
    and the recurrentgemma-2b prefill's (B = 4, S = 4096, R = 2560), at
    1e-5; the serving shape is timed;
 9. the LM serving path at full width, each model in bf16 with seeded
    random weights, `generate` with batch 4 and 16 new tokens, prefill on
-   the kernels: `llama3.2-3b` (prompt 2048; one flash_attention launch a
-   layer), `mamba2-780m` (prompt 2048; one ssd_scan launch a layer) and
+   the kernels, timed over 5 samples (median and range of prefill ms and
+   decode ms/token): `llama3.2-3b` (prompt 2048; one flash_attention launch
+   a layer), `mamba2-780m` (prompt 2048; one ssd_scan launch a layer) and
    `recurrentgemma-2b` (prompt 4096, twice its window; one rglru launch a
    recurrent layer, one flash_attention launch a local layer), every
-   flash_attention launch on the tensor-core kernel; each then
+   flash_attention and ssd_scan launch on its tensor-core kernel; each then
    runs a kernel prefill and one decode step against the same cache,
    their last-position logits held to one naive forward over the prompt
    and that token: 2e-2 in bf16 (with SSM layers, or twice the naive
@@ -107,6 +114,7 @@ SERVE_BATCH, SERVE_GEN = 4, 16
 SERVE = (("llama3.2-3b", 2048), ("mamba2-780m", 2048),
          ("recurrentgemma-2b", 4096))
 SSD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}   # as tests/test_kernels.py
+SERVE_SAMPLES = 5     # timed generate calls a served model
 
 
 def check(cond, msg):
@@ -161,10 +169,11 @@ def phase_build():
             if any(w in line for w in ("entry function", "registers",
                                        "spill")):
                 print(f"[build]   {line.strip()}")
-    hgmma = sass_count(build.build_record(fa_ops.LIBRARY)["path"], "HGMMA")
-    check(hgmma > 0, "no HGMMA instruction in the flash_attention library")
-    print(f"[build] flash_attention SASS (cuobjdump -sass): {hgmma} HGMMA "
-          f"instructions")
+    for mod in (fa_ops, ssd_ops):
+        hgmma = sass_count(build.build_record(mod.LIBRARY)["path"], "HGMMA")
+        check(hgmma > 0, f"no HGMMA instruction in the {mod.LIBRARY} library")
+        print(f"[build] {mod.LIBRARY} SASS (cuobjdump -sass): {hgmma} HGMMA "
+              f"instructions")
 
 
 def sass_count(path, opcode) -> int:
@@ -511,9 +520,10 @@ def _reset_launches():
     ops.grant.launches = ops.cycle_core.launches = 0
     for fn in _lm_kernels().values():
         fn.launches = 0
-    by_kernel = _lm_kernels()["flash_attention"].launches_by_kernel
-    for kernel in by_kernel:
-        by_kernel[kernel] = 0
+    for name in ("flash_attention", "ssd_scan"):
+        by_kernel = _lm_kernels()[name].launches_by_kernel
+        for kernel in by_kernel:
+            by_kernel[kernel] = 0
 
 
 def phase_main_path(net, device):
@@ -777,6 +787,9 @@ def _fa_cases():
         ("non-causal Sq < Sk", (2, 200, 333, 6, 2, 128), dict(causal=False)),
         ("non-causal Sq > Sk", (2, 333, 200, 4, 1, 256), dict(causal=False)),
         ("non-causal Sq > Sk", (1, 333, 200, 2, 2, 64), dict(causal=False)))]
+    # a head dim no kernel is built for (phi-3-vision's), zero-padded
+    cases += [("padded hd 96", (2, 200, 200, 4, 2, 96), dt,
+               dict(causal=True)) for dt in ("float32", "bfloat16")]
     cases += [("serving prefill", FA_LLAMA, dt, dict(causal=True))
               for dt in ("float32", "bfloat16")]
     cases += [("recurrentgemma prefill", FA_GEMMA, "bfloat16",
@@ -911,20 +924,32 @@ SSD_SERVING = (SERVE_BATCH, 2048, 48, 64, 128)
 
 
 def _ssd_cases():
-    """(label, (B, S, H, P, N), dtype) of phase 7: the property sweep's
-    space and the chunk-invariance shape of tests/test_kernels.py, then
-    the mamba2-780m prefill's."""
+    """(label, (B, S, H, P, N), dtype, as views) of phase 7: the property
+    sweep's space and the chunk-invariance shape of tests/test_kernels.py,
+    the tensor-core kernel's edges in bf16, then the mamba2-780m
+    prefill's."""
     shapes = [(1, 64, 2, 16, 16), (2, 100, 2, 64, 32), (3, 192, 2, 16, 32),
               (1, 192, 2, 64, 16), (2, 64, 2, 32, 32), (3, 100, 2, 32, 16),
               (1, 160, 2, 32, 16)]
-    cases = [("test shape", s, "float32") for s in shapes]
-    return cases + [("serving prefill", SSD_SERVING, dt)
-                    for dt in ("float32", "bfloat16")]
+    cases = [("test shape", s, "float32", False) for s in shapes]
+    cases += [("test shape", s, "bfloat16", False) for s in shapes[:2]]
+    # ragged S, P 16 and 32, N off the kernel's 64 columns, N 256, and the
+    # strided views of one conv output that ssm_apply passes
+    cases += [(label, shape, "bfloat16", views) for label, shape, views in (
+        ("ragged S", (2, 300, 4, 64, 128), False),
+        ("ragged S, P 32, N 48", (3, 37, 3, 32, 48), False),
+        ("P 16, N 256", (1, 130, 2, 16, 256), False),
+        ("conv-output views", (2, 300, 4, 64, 128), True))]
+    return cases + [("serving prefill", SSD_SERVING, dt, views)
+                    for dt, views in (("float32", False),
+                                      ("bfloat16", False),
+                                      ("bfloat16", True))]
 
 
-def _ssd_inputs(seed, shape, dtype, device):
+def _ssd_inputs(seed, shape, dtype, device, views=False):
     """x, dt (post-softplus), A (positive), Bm, Cm as the reference's
-    tests draw them; x, Bm, Cm in `dtype`."""
+    tests draw them; x, Bm, Cm in `dtype`, with `views` as the views of
+    one [B, S, H P + 2 N] buffer (the conv output `ssm_apply` splits)."""
     import torch
     import torch.nn.functional as F
     B, S, H, P, N = shape
@@ -937,22 +962,35 @@ def _ssd_inputs(seed, shape, dtype, device):
     A = randn(H).abs() + 0.1
     Bm, Cm = randn(B, S, N) * 0.3, randn(B, S, N) * 0.3
     low = getattr(torch, dtype)
-    return x.to(low), dt, A, Bm.to(low), Cm.to(low)
+    x, Bm, Cm = x.to(low), Bm.to(low), Cm.to(low)
+    if views:
+        buf = torch.cat([x.reshape(B, S, H * P), Bm, Cm], -1)
+        di = H * P
+        x, Bm, Cm = (buf[..., :di].reshape(B, S, H, P), buf[..., di:di + N],
+                     buf[..., di + N:])
+    return x, dt, A, Bm, Cm
 
 
 def phase_ssd_scan(device):
-    """The kernel against `ssd_ref` on the card for every case; returns
-    (max abs error, the bf16 serving shape's inputs).  fp32: y and the
-    final state within 1e-4 of their largest value; bf16: y per output
-    row (one (b, t, h) over P), as phase 6 holds attention."""
+    """The kernels against `ssd_ref` on the card for every case, each on
+    the kernel the rule names; returns (max abs error, the bf16 serving
+    shape's inputs).  fp32: y and the final state within 1e-4 of their
+    largest value; bf16: y per output row (one (b, t, h) over P), as phase
+    6 holds attention, and the state within 1e-4."""
     import torch
-    from repro_torch.kernels.ssd_scan import ops, ssd_ref
-    worst = 0.0
-    for i, (label, shape, dtype) in enumerate(_ssd_cases()):
-        args = _ssd_inputs(100 + i, shape, dtype, device)
+    from repro_torch.kernels.ssd_scan import ops, ssd_chunk_ref, ssd_ref
+    worst, timed = 0.0, None
+    for i, (label, shape, dtype, views) in enumerate(_ssd_cases()):
+        args = _ssd_inputs(100 + i, shape, dtype, device, views)
+        before = dict(ops.ssd_scan.launches_by_kernel)
         y, state = ops.ssd_scan(*args, return_state=True)
         want_y, want_s = ssd_ref(*args)
         torch.cuda.synchronize()
+        ran = [name for name, n in ops.ssd_scan.launches_by_kernel.items()
+               if n != before[name]]
+        kernel = ops.kernel_for(args[0].dtype, shape[3], shape[4])
+        check(ran == [kernel], f"ssd_scan {label}: ran {ran}, the rule names "
+                               f"{kernel}")
         check(y.dtype == args[0].dtype and y.shape == args[0].shape,
               f"ssd_scan {label}: y {y.dtype} {tuple(y.shape)}")
         check(bool(torch.isfinite(y).all() and torch.isfinite(state).all()),
@@ -969,10 +1007,20 @@ def phase_ssd_scan(device):
         check(srel < 1e-4, f"ssd_scan {label} {dtype}: state relative error "
                            f"{srel} >= 1e-4")
         worst = max(worst, diff, sdiff)
-        print(f"[ssd_scan] {label} {shape} {dtype}: kernel == ssd_ref (y max "
-              f"abs {diff:.3e}, relative{' per row' * (dtype != 'float32')} "
-              f"{rel:.3e}; state max abs {sdiff:.3e}, relative {srel:.3e})")
-    return worst, args
+        note = ""
+        if shape == SSD_SERVING and dtype == "bfloat16" and not views:
+            # beside its own decomposition with the same roundings
+            cy, cs = ssd_chunk_ref(*args, chunk=64, rounding=True)
+            note = (f"; against ssd_chunk_ref with its roundings: y "
+                    f"{_row_rel(y, cy)[1]:.3e} per row, state "
+                    f"{float((state - cs).abs().max() / cs.abs().max()):.3e}")
+            del cy, cs
+            timed = args
+        print(f"[ssd_scan] {label} {shape} {dtype}{' views' * views}: "
+              f"{kernel} kernel == ssd_ref (y max abs {diff:.3e}, "
+              f"relative{' per row' * (dtype != 'float32')} {rel:.3e}; state "
+              f"max abs {sdiff:.3e}, relative {srel:.3e}){note}")
+    return worst, timed
 
 
 def ssd_ops_count(shape, chunk=128):
@@ -987,12 +1035,36 @@ def ssd_ops_count(shape, chunk=128):
     return B * H * total
 
 
+def ssd_fma_kernel(x, dt, A, Bm, Cm):
+    """The FMA kernel (csrc/ssd_scan.cu) launched on bf16 inputs that the
+    dispatch rule sends to the tensor-core kernel: the yardstick of the
+    earlier design, timed beside it and used nowhere else."""
+    import torch
+    from repro_torch.kernels.ssd_scan import ops
+    B, S, H, P = x.shape
+    N = Bm.shape[-1]
+    y = torch.empty_like(x)
+    state = torch.empty((B, H, P, N), dtype=torch.float32, device=x.device)
+    rc = ops.library().ssd_scan_fwd(
+        x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
+        Cm.data_ptr(), y.data_ptr(), state.data_ptr(), 1, B, S, H, P, N,
+        torch.cuda.current_stream().cuda_stream)
+    check(rc == 0, f"FMA ssd_scan kernel launch failed: CUDA error {rc}")
+    return y, state
+
+
 def phase_ssd_timing(args):
+    """The tensor-core kernel, the FMA kernel on the same bf16 inputs and
+    the plain version at the served shape, against the bound: the bytes of
+    x, dt, B, C read once and y, the state written once at 3.35 TB/s, or
+    the chunked form's operations (chunk 128, causal pairs) at 989.4
+    TFLOP/s, whichever is larger."""
     from repro_torch.kernels.ssd_scan import ops, ssd_ref
     x, dt, A, Bm, Cm = args
     B, S, H, P = x.shape
     N = Bm.shape[-1]
     ms = cuda_ms(lambda: ops.ssd_scan(*args, return_state=True), 20)
+    fma_ms = cuda_ms(lambda: ssd_fma_kernel(*args), 5)
     plain_ms = cuda_ms(lambda: ssd_ref(*args), 2)
     nbytes = sum(t.numel() * t.element_size() for t in args) \
         + x.numel() * x.element_size() + B * H * P * N * 4
@@ -1000,14 +1072,18 @@ def phase_ssd_timing(args):
     ops_ms = ops_count / H100_BF16_OPS_PER_S * 1e3
     bytes_ms = nbytes / H100_BYTES_PER_S * 1e3
     bound_ms = max(ops_ms, bytes_ms)
-    print(f"[ssd_scan] B={B} S={S} H={H} P={P} N={N} {x.dtype}: kernel "
-          f"{ms:.4f} ms/launch, plain {plain_ms:.4f} ms, bound "
+    print(f"[ssd_scan] B={B} S={S} H={H} P={P} N={N} {x.dtype}: "
+          f"{ops.kernel_for(x.dtype, P, N)} kernel {ms:.4f} ms/launch "
+          f"({bound_ms / ms:.3f} of the bound), the FMA kernel on the same "
+          f"bf16 inputs {fma_ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
           f"{bound_ms * 1e3:.2f} us ({ops_count} operations: "
           f"{ops_ms * 1e3:.2f} us at 989.4 TFLOP/s; {nbytes} bytes: "
           f"{bytes_ms * 1e3:.2f} us at 3.35 TB/s); library call: none")
+    check(ms < fma_ms, f"ssd_scan: the tensor-core kernel ({ms:.4f} ms) is "
+                       f"not faster than the FMA kernel ({fma_ms:.4f} ms)")
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                 bound_by="operations" if ops_ms >= bytes_ms else "bytes",
-                library_ms=None)
+                library_ms=None, fma_ms=fma_ms)
 
 
 RGLRU_SERVING = (SERVE_BATCH, 4096, 2560)
@@ -1076,12 +1152,17 @@ def expected_launches(cfg):
 
 
 def phase_serve(device, arch, S, profile=False):
-    """One model's serving path at full width; returns the LM kernels'
-    launches in one `generate`.  With `profile`, then traces a prefill and
-    a few decode steps."""
+    """One model's serving path at full width, timed over `SERVE_SAMPLES`
+    `generate` calls, each holding the LM kernels' launches to one a layer
+    of the kernel's kind, every flash_attention and ssd_scan launch on the
+    kernel the rule names; returns the launches of one `generate` (the
+    last).  With `profile`, then traces a prefill and a few decode
+    steps."""
+    import statistics
     import torch
     from repro_torch.configs.registry import get_config
     from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
     from repro_torch.launch.serve import generate
     from repro_torch.models import transformer as TF
     cfg = get_config(arch)
@@ -1098,32 +1179,49 @@ def phase_serve(device, arch, S, profile=False):
              prefill_impl="kernel", device=device)
     torch.cuda.reset_peak_memory_stats()
     kernels = _lm_kernels()
-    _reset_launches()
-    out, prefill_s, decode_ms = generate(model, cfg, {"tokens": tokens}, gen,
-                                         prefill_impl="kernel", device=device)
-    launches = {name: fn.launches for name, fn in kernels.items()}
-    by_kernel = dict(kernels["flash_attention"].launches_by_kernel)
+    # the kernel each bf16 prefill launch runs: attention at the model's hd
+    # (llama 128, recurrentgemma 256) and mamba2's scan on the tensor cores
+    rules = {}
+    if expected_launches(cfg)["flash_attention"]:
+        rules["flash_attention"] = fa_ops.kernel_for(cfg.torch_dtype, cfg.hd)
+    if cfg.ssm is not None:
+        rules["ssd_scan"] = ssd_ops.kernel_for(
+            cfg.torch_dtype, cfg.ssm.head_dim, cfg.ssm.d_state)
+    prefill_ms, decode_ms = [], []
+    for _ in range(SERVE_SAMPLES):
+        _reset_launches()
+        out, prefill_s, step_ms = generate(
+            model, cfg, {"tokens": tokens}, gen, prefill_impl="kernel",
+            device=device)
+        launches = {name: fn.launches for name, fn in kernels.items()}
+        check(tuple(out.shape) == (B, gen),
+              f"generated shape {tuple(out.shape)}")
+        check(bool(((out >= 0) & (out < cfg.vocab_size)).all()),
+              "a generated token outside [0, V)")
+        check(launches == expected_launches(cfg),
+              f"{arch}: launches {launches} in one prefill, want "
+              f"{expected_launches(cfg)} (one a layer of the kernel's kind)")
+        for name in ("flash_attention", "ssd_scan"):
+            kernel = rules.get(name)
+            by_kernel = dict(kernels[name].launches_by_kernel)
+            want = {k: launches[name] * (k == kernel) for k in by_kernel}
+            check(by_kernel == want, f"{arch}: {name} launches by kernel "
+                                     f"{by_kernel}, want {want}")
+            launches[f"{name}_by_kernel"] = by_kernel
+        prefill_ms.append(prefill_s * 1e3)
+        decode_ms.append(step_ms)
     peak = torch.cuda.max_memory_allocated()
-    check(tuple(out.shape) == (B, gen), f"generated shape {tuple(out.shape)}")
-    check(bool(((out >= 0) & (out < cfg.vocab_size)).all()),
-          "a generated token outside [0, V)")
-    check(launches == expected_launches(cfg),
-          f"{arch}: launches {launches} in one prefill, want "
-          f"{expected_launches(cfg)} (one a layer of the kernel's kind)")
-    # every attention layer of a bf16 prefill at hd 128 or 256 on the
-    # tensor-core kernel, none on the FMA kernel
-    want = {"wgmma": 0, "fma": 0}
-    if launches["flash_attention"]:
-        want[fa_ops.kernel_for(cfg.torch_dtype, cfg.hd)] = \
-            launches["flash_attention"]
-    check(by_kernel == want, f"{arch}: flash_attention launches by kernel "
-                             f"{by_kernel}, want {want}")
-    launches["flash_attention_by_kernel"] = by_kernel
-    print(f"[serve] {arch} batch {B}, prompt {S}, {gen} tokens: prefill "
-          f"{prefill_s * 1e3:.2f} ms ({B * S / prefill_s:.1f} tokens/s), "
-          f"decode {decode_ms:.3f} ms/token ({B * 1e3 / decode_ms:.1f} "
-          f"tokens/s); launches {launches}; max_memory_allocated {peak} "
-          f"bytes")
+
+    def spread(xs):
+        return (f"median {statistics.median(xs):.2f} (min {min(xs):.2f}, "
+                f"max {max(xs):.2f}; {', '.join(f'{x:.2f}' for x in xs)})")
+    prefill = statistics.median(prefill_ms) / 1e3
+    decode = statistics.median(decode_ms)
+    print(f"[serve] {arch} batch {B}, prompt {S}, {gen} tokens, "
+          f"{SERVE_SAMPLES} samples: prefill ms {spread(prefill_ms)}, "
+          f"{B * S / prefill:.1f} tokens/s at the median; decode ms/token "
+          f"{spread(decode_ms)}, {B * 1e3 / decode:.1f} tokens/s at the "
+          f"median; launches {launches}; max_memory_allocated {peak} bytes")
     print(f"[serve] {arch} tokens[0]: {out[0].tolist()}")
     check_against_naive(model, cfg, tokens, device)
     if profile:
@@ -1326,6 +1424,16 @@ def main(argv=None):
         kernel: sum(n["flash_attention_by_kernel"][kernel]
                     for n in served.values())
         for kernel in ("wgmma", "fma")}
+    # mamba2-780m's prefill: every launch on the tensor-core kernel; the
+    # FMA kernel's time on the same bf16 inputs beside it
+    ssd_entry = kernel_entry(
+        "ssd_scan", "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan_wgmma.cu",
+        "src/repro/kernels/ssd_scan/kernel.py:20",
+        sum(n["ssd_scan"] for n in served.values()), ssd_err, ssd_t)
+    ssd_entry["launches_by_kernel"] = {
+        kernel: sum(n["ssd_scan_by_kernel"][kernel] for n in served.values())
+        for kernel in ("wgmma", "fma")}
+    ssd_entry["fma_ms"] = ssd_t["fma_ms"]
     fa_entry["by_path"] = {
         "llama3.2-3b": dict(fa_t["serving prefill"],
                             launches=served["llama3.2-3b"]["flash_attention"]),
@@ -1339,10 +1447,7 @@ def main(argv=None):
                      grant_launches, max(grant_err, live_err), grant_t),
         cycle_entry,
         fa_entry,
-        kernel_entry("ssd_scan", "src/repro_torch/kernels/ssd_scan/csrc/"
-                     "ssd_scan.cu", "src/repro/kernels/ssd_scan/kernel.py:20",
-                     sum(n["ssd_scan"] for n in served.values()), ssd_err,
-                     ssd_t),
+        ssd_entry,
         kernel_entry("rglru", "src/repro_torch/kernels/rglru/csrc/rglru.cu",
                      "src/repro/kernels/rglru/kernel.py:20",
                      sum(n["rglru"] for n in served.values()), rglru_err,

@@ -9,8 +9,12 @@ or 256 runs the tensor-core kernel in ``csrc/flash_attention_wgmma.cu``
 (wgmma, TMA-fed, warp-specialised); fp32, and bf16 at 16 or 80, the FMA
 kernel in ``csrc/flash_attention.cu``.  Both replace the TPU kernel
 `flash_attention_pallas` of `repro.kernels.flash_attention.kernel`.
-Unlike the reference wrapper they pad nothing: they take the true
-head_dim and mask on the true sequence lengths.
+A head_dim up to 256 that the chosen kernel is not built for (96 for
+phi-3-vision) is zero-padded to that kernel's next head_dim, with the
+true 1/sqrt(head_dim) as the scale, and the output sliced back: zero
+columns add nothing to q.k and give zero output columns, so this is
+exact.  The sequence lengths are never padded: the kernels mask on the
+true ones.
 """
 from __future__ import annotations
 
@@ -29,6 +33,7 @@ SOURCES = [Path(__file__).parent / "csrc" / name
 # the head dims each kernel is instantiated for
 HEAD_DIMS = (16, 64, 80, 128, 256)      # csrc/flash_attention.cu, fp32/bf16
 WGMMA_HEAD_DIMS = (64, 128, 256)        # csrc/flash_attention_wgmma.cu, bf16
+MAX_HEAD_DIM = 256
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ARGTYPES = {
@@ -52,18 +57,38 @@ def library(name: str = LIBRARY, sources=SOURCES) -> ctypes.CDLL:
 
 
 def kernel_for(dtype, head_dim) -> str:
-    """The kernel a CUDA call at (dtype, head_dim) launches: "wgmma" for
-    bf16 at a head dim of `WGMMA_HEAD_DIMS`, "fma" for fp32 and for bf16
-    at the other head dims of `HEAD_DIMS`.  Raises on what neither takes."""
+    """The kernel a CUDA call at (dtype, head_dim) launches: "fma" for
+    fp32, and for bf16 at the head dims of `HEAD_DIMS` outside
+    `WGMMA_HEAD_DIMS` (16, 80); "wgmma" for every other bf16 head dim.
+    Head dims up to `MAX_HEAD_DIM` only; raises on anything else."""
     if dtype not in _DTYPES:
         raise ValueError(f"flash_attention: q, k, v must all be float32 or "
                          f"all bfloat16, got {dtype}")
-    if head_dim not in HEAD_DIMS:
-        raise ValueError(f"flash_attention: head_dim {head_dim} not in the "
-                         f"kernels' {HEAD_DIMS}")
-    if dtype == torch.bfloat16 and head_dim in WGMMA_HEAD_DIMS:
+    if not 1 <= head_dim <= MAX_HEAD_DIM:
+        raise ValueError(f"flash_attention: head_dim {head_dim} not in "
+                         f"1..{MAX_HEAD_DIM}")
+    if dtype == torch.bfloat16 and head_dim not in (
+            set(HEAD_DIMS) - set(WGMMA_HEAD_DIMS)):
         return "wgmma"
     return "fma"
+
+
+def kernel_head_dim(kernel, head_dim) -> int:
+    """The head dim `kernel` runs `head_dim` at: itself if the kernel is
+    built for it, else the next one it is built for (zero padding)."""
+    dims = WGMMA_HEAD_DIMS if kernel == "wgmma" else HEAD_DIMS
+    return min(d for d in dims if d >= head_dim)
+
+
+def padded_operands(q, k, v, kernel):
+    """q, k, v zero-padded in the head dim to `kernel_head_dim` (unchanged
+    when the kernel takes it); the caller passes the true head dim's
+    scale and slices the output back."""
+    hd = q.shape[-1]
+    pad = kernel_head_dim(kernel, hd) - hd
+    if pad == 0:
+        return q, k, v
+    return tuple(torch.nn.functional.pad(x, (0, pad)) for x in (q, k, v))
 
 
 def _kernel_operand(x):
@@ -105,10 +130,11 @@ def flash_attention(q, k, v, causal=True, window=None):
     if B == 0 or Sq == 0 or Sk == 0 or H > 65535 or B > 65535:
         raise ValueError(f"flash_attention: unsupported problem B={B} "
                          f"Sq={Sq} Sk={Sk} H={H}")
-    q, k, v = (_kernel_operand(x) for x in (q, k, v))
+    q, k, v = (_kernel_operand(x) for x in padded_operands(q, k, v, kernel))
     o = torch.empty_like(q)
-    shape = (B, Sq, Sk, H, KV, hd, 1.0 / math.sqrt(hd), int(bool(causal)),
-             int(window is not None), int(window) if window is not None else 0)
+    shape = (B, Sq, Sk, H, KV, q.shape[-1], 1.0 / math.sqrt(hd),
+             int(bool(causal)), int(window is not None),
+             int(window) if window is not None else 0)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream().cuda_stream
         ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr())
@@ -123,7 +149,7 @@ def flash_attention(q, k, v, causal=True, window=None):
                            f"driver's CUresult when a tensor map failed)")
     flash_attention.launches += 1
     flash_attention.launches_by_kernel[kernel] += 1
-    return o
+    return o if o.shape[-1] == hd else o[..., :hd].contiguous()
 
 
 flash_attention.launches = 0

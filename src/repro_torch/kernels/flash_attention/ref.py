@@ -13,16 +13,18 @@ import math
 import torch
 
 
-def attention_ref(q, k, v, causal=True, window=None):
+def attention_ref(q, k, v, causal=True, window=None, scale=None):
     """q: [B, Sq, H, hd]; k/v: [B, Sk, KV, hd] -> [B, Sq, H, hd] in q's
     dtype.  The window applies only to causal attention, as in the
-    kernel."""
+    kernel.  `scale` multiplies q.k, 1/sqrt(hd) by default (another value
+    holds the kernels' zero-padded head dims)."""
     B, Sq, H, hd = q.shape
     Sk, KV = k.shape[1], k.shape[2]
     groups = H // KV
     k = torch.repeat_interleave(k, groups, dim=2)
     v = torch.repeat_interleave(v, groups, dim=2)
-    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) / math.sqrt(hd)
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float())
+    s = s / math.sqrt(hd) if scale is None else s * scale
     qpos = torch.arange(Sq, device=q.device)[:, None]
     kpos = torch.arange(Sk, device=q.device)[None, :]
     mask = torch.ones((Sq, Sk), dtype=torch.bool, device=q.device)

@@ -65,7 +65,7 @@ def _ffn_kind(cfg: ModelConfig, i: int) -> str:
 
 def _check_ported(cfg: ModelConfig):
     """Raise for the parts of the reference's LM stack not ported yet."""
-    todo = "is not ported yet (ROADMAP queue 1 item 13)"
+    todo = "is not ported yet (ROADMAP queue 1 item 6)"
     if cfg.moe is not None:
         raise NotImplementedError(f"{cfg.name}: MoE FFN (models/moe.py) "
                                   f"{todo}")

@@ -220,8 +220,33 @@ def test_flash_attention_wgmma_kernel_matches_plain_version(cuda, B, Sq, Sk,
     assert _row_rel(got, attention_ref(q, k, v, **kw)) < FA_TOL[torch.bfloat16]
 
 
+@pytest.mark.parametrize("B,Sq,Sk,H,KV,hd,kw", [
+    (2, 200, 200, 4, 2, 96, dict(causal=True)),       # phi-3-vision's hd
+    (1, 256, 333, 6, 2, 96, dict(causal=False)),
+    (1, 300, 300, 4, 1, 96, dict(causal=True, window=100)),
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_padded_head_dim_matches_plain_version(
+        cuda, B, Sq, Sk, H, KV, hd, kw, dtype):
+    """hd 96 runs zero-padded to 128 on the kernel the rule names (bf16:
+    the tensor-core kernel, fp32: the FMA kernel), held per output row to
+    `attention_ref` at the usual bars."""
+    g = torch.Generator(device=cuda).manual_seed(Sq * hd + Sk + H)
+    q, k, v = (torch.randn(s, generator=g, device=cuda).to(dtype)
+               for s in ((B, Sq, H, hd), (B, Sk, KV, hd), (B, Sk, KV, hd)))
+    kernel = fa_ops.kernel_for(dtype, hd)
+    before = dict(fa_ops.flash_attention.launches_by_kernel)
+    got = fa_ops.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    after = fa_ops.flash_attention.launches_by_kernel
+    assert {name: after[name] - before[name] for name in after} == {
+        name: int(name == kernel) for name in after}
+    assert got.dtype == dtype and got.shape == q.shape
+    assert _row_rel(got, attention_ref(q, k, v, **kw)) < FA_TOL[dtype]
+
+
 def test_flash_attention_kernel_rejects_what_it_does_not_take(cuda):
-    q = torch.zeros((1, 8, 2, 24), device=cuda)
+    q = torch.zeros((1, 8, 2, 320), device=cuda)
     with pytest.raises(ValueError, match="head_dim"):
         fa_ops.flash_attention(q, q, q)
     with pytest.raises(ValueError, match="float32"):
@@ -245,13 +270,61 @@ def _ssd_inputs(g, B, S, H, P, N, dtype, device):
 def test_ssd_scan_kernel_matches_plain_version(cuda, B, S, H, P, N, dtype):
     g = torch.Generator(device=cuda).manual_seed(S * P + N)
     args = _ssd_inputs(g, B, S, H, P, N, dtype, cuda)
+    kernel = ssd_ops.kernel_for(dtype, P, N)
     before = ssd_ops.ssd_scan.launches
+    before_kernel = ssd_ops.ssd_scan.launches_by_kernel[kernel]
     y, state = ssd_ops.ssd_scan(*args, return_state=True)
     torch.cuda.synchronize()
     assert ssd_ops.ssd_scan.launches == before + 1
+    assert ssd_ops.ssd_scan.launches_by_kernel[kernel] == before_kernel + 1
     assert y.dtype == dtype and y.shape == args[0].shape
     want_y, want_s = ssd_ref(*args)
     assert _rel(y, want_y) < (1e-4 if dtype == torch.float32 else 2e-2)
+    assert _rel(state, want_s) < 1e-4
+
+
+def _conv_views(x, Bm, Cm, lead=0):
+    """x, Bm, Cm as the views of one [B, S, lead + H P + 2 N] buffer that
+    `ssm_apply` passes (its conv output), `lead` elements in."""
+    B, S, H, P = x.shape
+    N = Bm.shape[-1]
+    buf = torch.cat([x.new_zeros((B, S, lead)), x.reshape(B, S, H * P), Bm,
+                     Cm], -1)
+    di = lead + H * P
+    return (buf[..., lead:di].reshape(B, S, H, P), buf[..., di:di + N],
+            buf[..., di + N:])
+
+
+@pytest.mark.parametrize("B,S,H,P,N,layout", [
+    (1, 2048, 48, 64, 128, "contiguous"),    # mamba2-780m's prefill, B 1
+    (1, 2048, 48, 64, 128, "views"),
+    (2, 300, 4, 64, 128, "views"),           # ragged S
+    (2, 37, 3, 32, 64, "views"),
+    (1, 100, 2, 16, 48, "views"),            # N off the kernel's 64 columns
+    (2, 130, 2, 64, 256, "views"),
+    (1, 200, 3, 64, 128, "misaligned views"),
+])
+def test_ssd_scan_wgmma_kernel_matches_plain_version(cuda, B, S, H, P, N,
+                                                     layout):
+    """bf16 runs the tensor-core kernel (and not the FMA kernel), on
+    contiguous tensors and on the strided views of the conv output that
+    `ssm_apply` passes (read in place; copied only when a view is not
+    16-byte aligned), held per output row to the bf16 bar and the state
+    to 1e-4."""
+    g = torch.Generator(device=cuda).manual_seed(S + P + N + H)
+    x, dt, A, Bm, Cm = _ssd_inputs(g, B, S, H, P, N, torch.bfloat16, cuda)
+    if layout != "contiguous":
+        x, Bm, Cm = _conv_views(x, Bm, Cm, lead=layout.count("misaligned"))
+        assert not x.is_contiguous() and not Bm.is_contiguous()
+    before = dict(ssd_ops.ssd_scan.launches_by_kernel)
+    y, state = ssd_ops.ssd_scan(x, dt, A, Bm, Cm, return_state=True)
+    torch.cuda.synchronize()
+    after = ssd_ops.ssd_scan.launches_by_kernel
+    assert after["wgmma"] == before["wgmma"] + 1
+    assert after["fma"] == before["fma"]
+    assert y.dtype == torch.bfloat16 and y.shape == x.shape
+    want_y, want_s = ssd_ref(x, dt, A, Bm, Cm)
+    assert _row_rel(y, want_y) < 2e-2
     assert _rel(state, want_s) < 1e-4
 
 

@@ -102,19 +102,48 @@ def test_flash_attention_rejects_mixed_devices():
     (torch.bfloat16, 80, "fma"), (torch.float32, 16, "fma"),
     (torch.float32, 64, "fma"), (torch.float32, 80, "fma"),
     (torch.float32, 128, "fma"), (torch.float32, 256, "fma"),
-    (torch.float32, 24, "head_dim"), (torch.bfloat16, 32, "head_dim"),
+    (torch.float32, 24, "fma"), (torch.bfloat16, 32, "wgmma"),
+    (torch.bfloat16, 96, "wgmma"), (torch.float32, 96, "fma"),
+    (torch.bfloat16, 112, "wgmma"), (torch.float32, 112, "fma"),
+    (torch.bfloat16, 320, "head_dim"), (torch.float32, 257, "head_dim"),
+    (torch.bfloat16, 0, "head_dim"),
     (torch.float16, 128, "float32"), (torch.float64, 64, "float32"),
 ])
 def test_flash_attention_dispatch_rule(dtype, hd, kernel):
     """The static (dtype, head_dim) rule that picks a CUDA call's kernel:
-    bf16 at 64, 128 and 256 on the tensor-core kernel, fp32 and bf16 at
-    16 and 80 on the FMA kernel; anything else raises (the value names
-    the message)."""
+    fp32, and bf16 at 16 and 80, on the FMA kernel; every other bf16 head
+    dim on the tensor-core kernel (those it is not built for, such as
+    phi-3-vision's 96, zero-padded); head dims above 256 and other dtypes
+    raise (the value names the message)."""
     if kernel in ("wgmma", "fma"):
         assert pt_ops.kernel_for(dtype, hd) == kernel
     else:
         with pytest.raises(ValueError, match=kernel):
             pt_ops.kernel_for(dtype, hd)
+
+
+@pytest.mark.parametrize("dtype,hd,padded", [
+    ("bfloat16", 96, 128), ("float32", 96, 128), ("bfloat16", 112, 128),
+    ("float32", 112, 128), ("float32", 24, 64), ("bfloat16", 32, 64)])
+@pytest.mark.parametrize("kw", [dict(causal=True), dict(causal=False),
+                                dict(causal=True, window=48)])
+def test_flash_attention_padded_head_dim_is_exact(dtype, hd, padded, kw):
+    """A head dim the chosen kernel is not built for runs zero-padded to
+    its next one with the true 1/sqrt(hd) as the scale (what the CUDA path
+    launches): through `attention_ref` that equals the unpadded
+    computation, the reference's plain version and its Pallas kernel in
+    interpret mode (which pads to 128 and rescales q), at the usual
+    bars."""
+    jx, tx = _inputs(hd + len(kw), 2, 96, 96, 4, 2, hd, dtype)
+    tol = DTYPES[dtype][2]
+    kernel = pt_ops.kernel_for(tx[0].dtype, hd)
+    assert pt_ops.kernel_head_dim(kernel, hd) == padded
+    qp, kp, vp = pt_ops.padded_operands(*tx, kernel)
+    assert qp.shape[-1] == kp.shape[-1] == vp.shape[-1] == padded
+    got = pt_ref.attention_ref(qp, kp, vp, scale=hd ** -0.5, **kw)[..., :hd]
+    assert _err(_np(got), _np(pt_ref.attention_ref(*tx, **kw))) < tol
+    assert _err(_np(got), fa_ref.attention_ref(*jx, **kw)) < tol
+    assert _err(_np(got), fa_ops.flash_attention(*jx, **kw)) < tol
 
 
 def _load_tool(name):
