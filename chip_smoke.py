@@ -8,18 +8,22 @@ Phases (any failure ends the run with a nonzero exit):
 
 1. the card (nvidia-smi name and power limit, torch and CUDA versions) and
    the build of every CUDA kernel of the path from this checkout's sources,
-   with HGMMA instructions in the flash and the SSD libraries' SASS;
+   with HGMMA instructions in the flash and the SSD libraries' SASS and the
+   atomic opcodes of each netsim kernel;
 2. the PRNG on the card: Threefry-2x32 known answers, and split / uniform /
    randint / bernoulli on CUDA equal to the same calls on the CPU;
 3. each kernel against its plain PyTorch version on the card, bit for bit,
-   and its time at the main path's shapes:
-   - grant: (a) random inputs with stranded rows and ties, (b) the live
-     engine states of the first cycles of phase 4's run;
+   and its time at the main path's shapes; the netsim wrappers' two
+   kernels each (the one-launch cooperative kernel, row-index priority
+   only, and the three-pass kernel), on the same inputs:
+   - grant: (a) random inputs with stranded rows and ties, one at the
+     radix-32 network's channel count, (b) the live engine states of the first cycles of
+     phase 4's run, (c) timing at the oracle step's shape;
    - cycle_core: (a) random inputs (lanes, stranded rows, ties, an
      explicit priority, ages where the reference's int32 key overflows —
-     there held to the two-pass `fused._grant` too), (b) the live states of
-     the first cycles of phase 4's fused and compact runs, (c) timing at
-     both steps' shapes;
+     there held to the two-pass `fused._grant` too, one at the radix-32
+     network's channel count), (b) the live states of the first cycles of phase
+     4's fused and compact runs, (c) timing at both steps' shapes;
 4. the main path on the paper's radix-16 evaluation network (g = 41:
    1,312 chips, 30,176 channels), 2 rates x 2 seeds = 4 lanes through
    `Simulator.sweep_grid`, once per cycle step:
@@ -28,8 +32,11 @@ Phases (any failure ends the run with a nonzero exit):
    - the fused and the compact step at offered 0.4 and 1.0 (Fig. 11's
      uniform-traffic loads), equal to each other on every lane and to the
      oracle on the 0.4 lanes;
-   each with its kernel launch counts and exact packet conservation on
-   every lane;
+   each with its kernel launch counts (every one on the kernel that
+   `kernel_for` names for the step's priority: the coop kernel for the
+   oracle and fused steps, the three-pass kernel for the compact step's
+   explicit priority)
+   and exact packet conservation on every lane;
 5. the port on the card against the port on the CPU on a small network,
    field for field, for all three steps across routing modes, cold and
    warm faults and the reaper, plus a compact run pinned below its live
@@ -174,6 +181,10 @@ def phase_build():
         check(hgmma > 0, f"no HGMMA instruction in the {mod.LIBRARY} library")
         print(f"[build] {mod.LIBRARY} SASS (cuobjdump -sass): {hgmma} HGMMA "
               f"instructions")
+    for fn, ops_ in sass_atomics(build.build_record(ops.LIBRARY)["path"]
+                                 ).items():
+        print(f"[build] netsim SASS (cuobjdump -sass), {fn}: atomics "
+              f"{ops_}")
 
 
 def sass_count(path, opcode) -> int:
@@ -183,6 +194,27 @@ def sass_count(path, opcode) -> int:
     out = subprocess.run([tool, "-sass", str(path)], capture_output=True,
                          text=True, check=True)
     return sum(opcode in line for line in out.stdout.splitlines())
+
+
+def sass_atomics(path) -> dict:
+    """{kernel function: {atomic or reduction opcode: lines}} of
+    `cuobjdump -sass` of a built library."""
+    import re
+    import shutil
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    out = subprocess.run([tool, "-sass", str(path)], capture_output=True,
+                         text=True, check=True)
+    found, fn = {}, None
+    for line in out.stdout.splitlines():
+        head = re.search(r"Function : (\S+)", line)
+        if head:
+            fn = head.group(1)
+            continue
+        op = re.search(r"\b((?:ATOMS|ATOMG|ATOM|RED)\.?[A-Z0-9.]*)", line)
+        if op and fn:
+            ops_ = found.setdefault(fn, {})
+            ops_[op.group(1)] = ops_.get(op.group(1), 0) + 1
+    return found
 
 
 def phase_prng(device):
@@ -225,24 +257,29 @@ def _random_grant_inputs(rng, B, N, E, device):
 
 
 def _grant_err(args, buf_pkts):
-    """Max |kernel - plain| over both outputs (as integers)."""
-    from repro_torch.kernels.netsim import grant, grant_ref
-    got = grant(*args, buf_pkts=buf_pkts)
+    """Max |kernel - plain| over both outputs (as integers), for both
+    kernels."""
+    from repro_torch.kernels.netsim import grant, grant_ref, ops
     want = grant_ref(*args, buf_pkts=buf_pkts)
-    return max(int((g.int() - w.int()).abs().max()) for g, w in
-               zip(got, want))
+    err = 0
+    for kernel in ops.KERNELS:
+        got = grant(*args, buf_pkts=buf_pkts, kernel=kernel)
+        err = max([err] + [int((g.int() - w.int()).abs().max())
+                           for g, w in zip(got, want)])
+    return err
 
 
 def phase_grant_random(device):
     rng = np.random.default_rng(0)
     err = 0
     for B, N, E in [(1, 1, 1), (1, 4099, 291), (4, 204673, 30177),
-                    (1, 100003, 1029)]:
+                    (4, 204672, 30176), (1, 100003, 1029),
+                    (1, 20000, 241280)]:
         err = max(err, _grant_err(_random_grant_inputs(rng, B, N, E, device),
                                   8))
-    check(err == 0, f"grant kernel != grant_ref on random inputs ({err})")
-    print("[grant] random inputs (B in {1,4}, E in {1,291,30177,1029}): "
-          "kernel == grant_ref")
+    check(err == 0, f"grant kernels != grant_ref on random inputs ({err})")
+    print("[grant] random inputs (B in {1,4}, E in {1,291,30176,30177,1029,"
+          "241280}): coop and three-pass kernels == grant_ref")
     return err
 
 
@@ -292,13 +329,16 @@ def phase_grant_live(net, device, cycles=LIVE_CYCLES):
         rwin, rwon = grant_ref(*args, buf_pkts=cfg.buf_pkts)
         err = max(err, int((win.int() - rwin.int()).abs().max()),
                   int((won.int() - rwon.int()).abs().max()))
+        win3, won3 = grant(*args, buf_pkts=cfg.buf_pkts, kernel="three_pass")
+        err = max(err, int((win3.int() - rwin.int()).abs().max()),
+                  int((won3.int() - rwon.int()).abs().max()))
         granted += int(win.sum())
         state = apply_moves(state, req, win, won, t)
     check(err == 0, f"grant kernel != grant_ref on live states ({err})")
     check(granted > 0, "live states granted nothing")
     print(f"[grant] live full-width states, {cycles} cycles x {B} lanes "
           f"(N = {args[0].shape[1]} rows, E = {args[5].shape[1]} channels, "
-          f"{granted} grants): kernel == grant_ref")
+          f"{granted} grants): coop and three-pass kernels == grant_ref")
     return err, args, cfg.buf_pkts
 
 
@@ -314,15 +354,22 @@ def grant_bytes(args) -> int:
 
 
 def phase_grant_timing(args, buf_pkts):
+    """The coop kernel, the three-pass kernel and the plain version on the
+    same inputs (time per call of back-to-back calls)."""
     from repro_torch.kernels.netsim import grant, grant_ref
-    ms = cuda_ms(lambda: grant(*args, buf_pkts=buf_pkts), 200)
+    B = args[0].shape[0]
+    ms = cuda_ms(lambda: grant(*args, buf_pkts=buf_pkts, kernel="coop"), 200)
+    three_ms = cuda_ms(lambda: grant(*args, buf_pkts=buf_pkts,
+                                     kernel="three_pass"), 200)
     plain_ms = cuda_ms(lambda: grant_ref(*args, buf_pkts=buf_pkts), 50)
     nbytes = grant_bytes(args)
     bound_ms = nbytes / H100_BYTES_PER_S * 1e3
-    print(f"[grant] full width B={args[0].shape[0]}: kernel {ms * 1e3:.2f} "
-          f"us/launch, plain {plain_ms * 1e3:.2f} us, bound "
+    print(f"[grant] full width B={B}: coop kernel {ms * 1e3:.2f} us/launch, "
+          f"three-pass "
+          f"{three_ms * 1e3:.2f} us, plain {plain_ms * 1e3:.2f} us, bound "
           f"{bound_ms * 1e3:.2f} us ({nbytes} bytes at 3.35 TB/s)")
-    return ms, plain_ms, bound_ms
+    return dict(ms=ms, three_pass_ms=three_ms, plain_ms=plain_ms,
+                bound_ms=bound_ms)
 
 
 def _cycle_err(got, want):
@@ -349,18 +396,23 @@ def phase_cycle_core_random(device):
     packed int32 key would overflow, also == the two-pass `_grant`."""
     import torch
     from repro_torch.core.engine.fused import _grant
-    from repro_torch.kernels.netsim import cycle_core, cycle_core_ref
+    from repro_torch.kernels.netsim import cycle_core, cycle_core_ref, ops
     rng = np.random.default_rng(1)
     err = 0
     for B, N, E in [(1, 1, 1), (1, 4099, 291), (4, 204673, 30177),
-                    (4, 51169, 30177), (1, 100003, 1029)]:
+                    (4, 204672, 30176), (4, 51169, 30177),
+                    (4, 51168, 30176), (1, 100003, 1029),
+                    (1, 20000, 241280)]:
         for explicit_prio in (False, True):
             for itime_lo in (0, 2**31 - 8):
                 args, prio, r2 = _random_cycle_inputs(
                     rng, B, N, E, itime_lo, explicit_prio, device)
-                got = cycle_core(*args, r2=r2, prio=prio)
-                err = max(err, _cycle_err(
-                    got, cycle_core_ref(*args, r2=r2, prio=prio)))
+                want = cycle_core_ref(*args, r2=r2, prio=prio)
+                # the coop kernel takes the row-index priority only
+                for kernel in ops.KERNELS if prio is None else (
+                        "three_pass",):
+                    got = cycle_core(*args, r2=r2, prio=prio, kernel=kernel)
+                    err = max(err, _cycle_err(got, want))
                 if itime_lo:
                     out, itime, ok, ch_ok = args
                     p = (torch.arange(N, dtype=torch.int32, device=device)
@@ -369,11 +421,12 @@ def phase_cycle_core_random(device):
                     won, wprio = _grant(ok, out, itime, p, ch_ok, E, r2,
                                         False)
                     err = max(err, _cycle_err(got[:2], (won, wprio)))
-    check(err == 0, f"cycle_core kernel != plain versions on random "
+    check(err == 0, f"cycle_core kernels != plain versions on random "
                     f"inputs ({err})")
-    print("[cycle_core] random inputs (B in {1,4}, E in {1,291,30177,1029}, "
-          "prio none/explicit, itime near 2^31): kernel == cycle_core_ref "
-          "== two-pass _grant")
+    print("[cycle_core] random inputs (B in {1,4}, E in {1,291,30176,30177,"
+          "1029,241280}, prio none/explicit, itime near 2^31): coop (prio "
+          "none) and three-pass kernels == cycle_core_ref == two-pass "
+          "_grant")
     return err
 
 
@@ -410,8 +463,12 @@ def phase_cycle_core_live(net, device, impl, cycles=LIVE_CYCLES):
 
     def checked(*args, **kw):
         got = real(*args, **kw)
-        seen["err"] = max(seen["err"],
-                          _cycle_err(got, ops.cycle_core_ref(*args, **kw)))
+        want = ops.cycle_core_ref(*args, **kw)
+        # both kernels where the call takes both
+        other = real(*args, **kw, kernel="three_pass" if kw.get("prio")
+                     is None else None)
+        seen["err"] = max(seen["err"], _cycle_err(got, want),
+                          _cycle_err(other, want))
         seen["won"] += int(got[0].sum())
         seen["calls"] += 1
         seen["last"] = (args, kw)
@@ -420,6 +477,7 @@ def phase_cycle_core_live(net, device, impl, cycles=LIVE_CYCLES):
     # the wrapper counts its launches on whatever `ops.cycle_core` names,
     # so this phase's launches land on `checked` and are not counted
     checked.launches = 0
+    checked.launches_by_kernel = dict.fromkeys(ops.KERNELS, 0)
     ops.cycle_core = checked
     try:
         run_scan(step, cycles, -1, state, rates, keys, fl)
@@ -431,9 +489,11 @@ def phase_cycle_core_live(net, device, impl, cycles=LIVE_CYCLES):
                             f"{impl} states ({seen['err']})")
     check(seen["won"] > 0, f"live {impl} states granted nothing")
     args, kw = seen["last"]
+    kernel = ops.kernel_for(kw.get("prio") is not None)
     print(f"[cycle_core] live full-width {impl} states, {cycles} cycles x "
           f"{B} lanes (N = {args[0].shape[1]} rows, E = {args[3].shape[1]} "
-          f"channels, {seen['won']} grants): kernel == cycle_core_ref")
+          f"channels, {seen['won']} grants, kernel {kernel}): coop (prio "
+          f"none) and three-pass kernels == cycle_core_ref")
     return seen["err"], seen["last"]
 
 
@@ -450,16 +510,27 @@ def cycle_core_bytes(args, kw) -> int:
 
 
 def phase_cycle_core_timing(impl, args, kw):
-    from repro_torch.kernels.netsim import cycle_core, cycle_core_ref
-    ms = cuda_ms(lambda: cycle_core(*args, **kw), 200)
+    """Each kernel that takes the call (the coop kernel: the row-index
+    priority only) and the plain version on the same inputs (time per call
+    of back-to-back calls); `ms` is the time of the kernel the rule
+    picks."""
+    from repro_torch.kernels.netsim import cycle_core, cycle_core_ref, ops
+    B, N = args[0].shape
+    E = args[3].shape[1]
+    explicit = kw.get("prio") is not None
+    kernel = ops.kernel_for(explicit)
+    t = {f"{k}_ms": cuda_ms(lambda: cycle_core(*args, **kw, kernel=k), 200)
+         for k in ops.KERNELS if not (explicit and k == "coop")}
     plain_ms = cuda_ms(lambda: cycle_core_ref(*args, **kw), 50)
     nbytes = cycle_core_bytes(args, kw)
     bound_ms = nbytes / H100_BYTES_PER_S * 1e3
-    print(f"[cycle_core] {impl} shapes B={args[0].shape[0]} "
-          f"N={args[0].shape[1]} E={args[3].shape[1]}: kernel "
-          f"{ms * 1e3:.2f} us/launch, plain {plain_ms * 1e3:.2f} us, bound "
-          f"{bound_ms * 1e3:.2f} us ({nbytes} bytes at 3.35 TB/s)")
-    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms)
+    print(f"[cycle_core] {impl} shapes B={B} N={N} E={E}: "
+          + ", ".join(f"{k[:-3]} kernel {v * 1e3:.2f} us/launch"
+                      for k, v in t.items())
+          + f" (the path runs {kernel}), plain {plain_ms * 1e3:.2f} us, "
+            f"bound {bound_ms * 1e3:.2f} us ({nbytes} bytes at 3.35 TB/s)")
+    return dict(t, ms=t[f"{kernel}_ms"], kernel=kernel, plain_ms=plain_ms,
+                bound_ms=bound_ms)
 
 
 class ConservationProbe:
@@ -518,6 +589,9 @@ def _lm_kernels():
 def _reset_launches():
     from repro_torch.kernels.netsim import ops
     ops.grant.launches = ops.cycle_core.launches = 0
+    for fn in (ops.grant, ops.cycle_core):
+        for kernel in fn.launches_by_kernel:
+            fn.launches_by_kernel[kernel] = 0
     for fn in _lm_kernels().values():
         fn.launches = 0
     for name in ("flash_attention", "ssd_scan"):
@@ -546,6 +620,7 @@ def phase_main_path(net, device):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches, other = ops.grant.launches, ops.cycle_core.launches
+    by_kernel = dict(ops.grant.launches_by_kernel)
     lanes = len(FULL_RATES) * len(FULL_SEEDS)
     print(f"[main] radix-16 g=41: {net.num_chips} chips, "
           f"{net.num_channels} channels, {lanes} lanes x {cycles} cycles "
@@ -558,16 +633,20 @@ def phase_main_path(net, device):
     check(launches == cycles,
           f"grant launches {launches} != cycles run {cycles}")
     check(other == 0, f"the oracle step launched cycle_core {other} times")
+    check(by_kernel == {"coop": cycles, "three_pass": 0},
+          f"grant launches by kernel {by_kernel}: not all on the coop "
+          f"kernel")
     print(f"[main] wall {wall:.3f} s: {cycles / wall:.2f} cycles/s, "
           f"{lanes * cycles / wall:.2f} lane-cycles/s; grant launches "
-          f"{launches}; max_memory_allocated "
+          f"{launches} {by_kernel}; max_memory_allocated "
           f"{torch.cuda.max_memory_allocated()} bytes")
-    return launches, grid
+    return dict(launches=launches, launches_by_kernel=by_kernel,
+                cycles_per_s=cycles / wall), grid
 
 
-def phase_fast_path(net, device, impl):
-    """One fast step at offered 0.4 and 1.0; returns (cycle_core
-    launches, the grid)."""
+def phase_fast_path(net, device, impl, kernel):
+    """One fast step at offered 0.4 and 1.0, every cycle_core launch on
+    `kernel`; returns (its launch counts and cycles/s, the grid)."""
     import torch
     from repro_torch.core import traffic
     from repro_torch.core.simulator import Simulator
@@ -585,6 +664,7 @@ def phase_fast_path(net, device, impl):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches, other = ops.cycle_core.launches, ops.grant.launches
+    by_kernel = dict(ops.cycle_core.launches_by_kernel)
     lanes = len(FAST_RATES) * len(FULL_SEEDS)
     runs = 1 + grid.escalations
     print(f"[{impl}] radix-16 g=41: {lanes} lanes x {cycles} cycles "
@@ -597,12 +677,16 @@ def phase_fast_path(net, device, impl):
           f"{impl}: cycle_core launches {launches} != cycles x runs "
           f"{cycles} x {runs}")
     check(other == 0, f"the {impl} step launched grant {other} times")
+    check(by_kernel[kernel] == launches,
+          f"{impl}: cycle_core launches by kernel {by_kernel}: not all on "
+          f"the {kernel} kernel")
     print(f"[{impl}] wall {wall:.3f} s ({runs} run(s)): "
           f"{cycles * runs / wall:.2f} cycles/s, "
           f"{lanes * cycles * runs / wall:.2f} lane-cycles/s; cycle_core "
-          f"launches {launches}; max_memory_allocated "
+          f"launches {launches} {by_kernel}; max_memory_allocated "
           f"{torch.cuda.max_memory_allocated()} bytes")
-    return launches, grid
+    return dict(launches=launches, launches_by_kernel=by_kernel,
+                cycles_per_s=cycles * runs / wall), grid
 
 
 def check_fast_grids(oracle, grids):
@@ -621,9 +705,10 @@ def check_fast_grids(oracle, grids):
           f"their 0.4 lanes == the oracle's, field for field")
 
 
-def phase_profile(net, device, impl, cycles=20):
+def phase_profile(net, device, impl, per_call, cycles=20):
     """torch.profiler over a short steady window of one main-path step
-    (offered 0.4 on every lane)."""
+    (offered 0.4 on every lane), whose grant / cycle_core call must be
+    `per_call` kernels (1 for the coop kernel, 3 for the three-pass)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch import random as jr
@@ -646,14 +731,19 @@ def phase_profile(net, device, impl, cycles=20):
         run_scan(step, cycles, -1, state, rates, keys, fl)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    profile_report(prof, wall, f"{impl}, {cycles} cycles", cycles, "cycle",
-                   ("grant", "cycle_"))
+    n = profile_report(prof, wall, f"{impl}, {cycles} cycles", cycles,
+                       "cycle", ("grant", "cycle_"))
+    print(f"[profile]   grant / cycle_core kernels per call: "
+          f"{n / cycles:.2f}")
+    check(n == cycles * per_call, f"{impl}: {n} grant / cycle_core kernels "
+                                  f"in {cycles} calls, not {per_call} a "
+                                  f"call")
 
 
 def profile_report(prof, wall, label, n, unit, names):
     """Device busy share and kernels per `unit` of a profiler window, the
     device time per launch of the kernels whose name holds one of `names`,
-    and the top of the table."""
+    and the top of the table; returns those kernels' launches."""
     import torch
     events = prof.key_averages()
     attr = ("self_device_time_total"
@@ -665,11 +755,14 @@ def profile_report(prof, wall, label, n, unit, names):
     print(f"[profile] {label}: wall {wall * 1e3:.1f} ms, "
           f"device busy {dev:.1f} ms ({100 * dev / (wall * 1e3):.1f}%), "
           f"{sum(e.count for e in kernels) / n:.0f} kernels per {unit}")
+    named = 0
     for e in kernels:
         if any(name in e.key for name in names):
+            named += e.count
             print(f"[profile]   {e.key}: {getattr(e, attr) / e.count:.2f} us "
                   f"device time per launch, {e.count} launches")
     print(events.table(sort_by=attr, row_limit=12))
+    return named
 
 
 def phase_serve_profile(model, cfg, tokens, device, steps=4):
@@ -1367,8 +1460,7 @@ def main(argv=None):
     grant_err = phase_grant_random(device)
     net = full_width_net()
     live_err, grant_args, buf_pkts = phase_grant_live(net, device)
-    ms, plain_ms, bound_ms = phase_grant_timing(grant_args, buf_pkts)
-    grant_t = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms)
+    grant_t = phase_grant_timing(grant_args, buf_pkts)
     del grant_args
     cycle_err = phase_cycle_core_random(device)
     cycle_t = {}
@@ -1377,15 +1469,20 @@ def main(argv=None):
         cycle_err = max(cycle_err, err)
         cycle_t[impl] = phase_cycle_core_timing(impl, cargs, ckw)
         del cargs, ckw
-    grant_launches, oracle = phase_main_path(net, device)
-    grids, cycle_launches = {}, {}
+    grant_run, oracle = phase_main_path(net, device)
+    grids, cycle_runs = {}, {}
     for impl in FAST_STEPS:
-        cycle_launches[impl], grids[impl] = phase_fast_path(net, device,
-                                                            impl)
+        cycle_runs[impl], grids[impl] = phase_fast_path(
+            net, device, impl, cycle_t[impl]["kernel"])
     check_fast_grids(oracle, grids)
     if args.profile:
-        for impl in ("jnp",) + FAST_STEPS:
-            phase_profile(net, device, impl)
+        kernels = dict(jnp="coop", **{impl: cycle_t[impl]["kernel"]
+                                      for impl in FAST_STEPS})
+        check(grant_run["launches_by_kernel"]["coop"] > 0,
+              "the oracle step's grant did not run the coop kernel")
+        for impl, kernel in kernels.items():
+            phase_profile(net, device, impl,
+                          1 if kernel == "coop" else 3)
     phase_small_parity(device)
     fa_err, fa_timed = phase_flash_attention(device)
     fa_t = {label: phase_flash_timing(*fa_timed[label])
@@ -1402,14 +1499,30 @@ def main(argv=None):
               for arch, S in SERVE}
     for arch, _ in SERVE:
         phase_lm_parity(device, arch)
+    # the netsim kernels: the coop kernel's numbers, the three-pass
+    # kernel's time on the same inputs beside them
+    grant_entry = kernel_entry(
+        "netsim.grant", "src/repro_torch/kernels/netsim/csrc/grant_coop.cu",
+        "src/repro/kernels/netsim/kernel.py:62", grant_run["launches"],
+        max(grant_err, live_err), grant_t)
+    grant_entry.update(launches_by_kernel=grant_run["launches_by_kernel"],
+                       three_pass_ms=grant_t["three_pass_ms"],
+                       cycles_per_s=grant_run["cycles_per_s"])
     cycle_entry = kernel_entry(
         "netsim.cycle_core",
-        "src/repro_torch/kernels/netsim/csrc/cycle_core.cu",
+        "src/repro_torch/kernels/netsim/csrc/cycle_core_coop.cu",
         "src/repro/kernels/netsim/kernel.py:147",
-        sum(cycle_launches.values()), cycle_err, cycle_t["fused"])
+        sum(r["launches"] for r in cycle_runs.values()), cycle_err,
+        cycle_t["fused"])
+    cycle_entry["launches_by_kernel"] = {
+        kernel: sum(r["launches_by_kernel"][kernel]
+                    for r in cycle_runs.values())
+        for kernel in ("coop", "three_pass")}
+    cycle_entry["three_pass_ms"] = cycle_t["fused"]["three_pass_ms"]
+    cycle_entry["kernel_by_step"] = {impl: cycle_t[impl]["kernel"]
+                                     for impl in FAST_STEPS}
     # the fused step's shapes give the headline numbers; both steps' own
-    cycle_entry["by_step"] = {impl: dict(cycle_t[impl],
-                                         launches=cycle_launches[impl])
+    cycle_entry["by_step"] = {impl: dict(cycle_t[impl], **cycle_runs[impl])
                               for impl in FAST_STEPS}
     # llama's prefill gives the flash kernel's headline numbers;
     # recurrentgemma's local layers (hd 256, window 2048) their own
@@ -1441,10 +1554,7 @@ def main(argv=None):
             fa_t["recurrentgemma prefill"],
             launches=served["recurrentgemma-2b"]["flash_attention"])}
     print(json.dumps({"kernels": [
-        kernel_entry("netsim.grant",
-                     "src/repro_torch/kernels/netsim/csrc/grant.cu",
-                     "src/repro/kernels/netsim/kernel.py:62",
-                     grant_launches, max(grant_err, live_err), grant_t),
+        grant_entry,
         cycle_entry,
         fa_entry,
         ssd_entry,

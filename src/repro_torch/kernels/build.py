@@ -37,12 +37,17 @@ def _nvcc() -> str:
 
 def build_library(name: str, sources: list[Path]) -> tuple[Path, dict]:
     """Compile `sources` into ``build/kernels/lib<name>-<hash>.so`` unless
-    that file exists.  Returns the path and a record with the path, the
+    that file exists (the hash covers the sources and the ``*.cuh`` headers
+    beside them).  Returns the path and a record with the path, the
     build's wall time (0.0 when reused) and the compiler's `-Xptxas -v`
     report."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for src in sources:
         h.update(Path(src).read_bytes())
+    # the headers beside the sources, which they include
+    for header in sorted({hdr for src in sources
+                          for hdr in Path(src).parent.glob("*.cuh")}):
+        h.update(header.read_bytes())
     so = BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
     log = so.with_suffix(".log")
     if so.exists():

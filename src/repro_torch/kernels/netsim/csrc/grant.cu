@@ -1,5 +1,8 @@
 // Age-based grant for the simulator's oracle cycle step, written for Hopper
-// (sm_90a).
+// (sm_90a): the three-pass kernel.  The wrappers run the one-launch
+// `grant_coop.cu` instead; this one runs only when a call names it
+// (`ops.grant(..., kernel="three_pass")`), as the tests and
+// `chip_smoke.py` do to hold and time the two against each other.
 //
 // Replaces the TPU kernel `_kernel` / `grant_pallas` in
 // src/repro/kernels/netsim/kernel.py (the pl.pallas_call reached through

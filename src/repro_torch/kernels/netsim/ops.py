@@ -3,14 +3,33 @@
 `grant` (the oracle step's arbitration) and `cycle_core` (the fused and
 compact steps' arbitration core) dispatch on the device of their
 tensors: CPU tensors go to the plain PyTorch versions in `ref`; CUDA
-tensors launch the hand-written kernels in ``csrc/grant.cu`` and
-``csrc/cycle_core.cu`` (one library) or raise — there is no fallback.
+tensors launch a hand-written kernel or raise — there is no fallback.
 They replace the TPU kernels `grant_pallas` and `cycle_core_pallas` of
 `repro.kernels.netsim.kernel`.
+
+Each has two kernels in the one ``netsim`` library, and a static rule on
+the call's priority, `kernel_for(explicit_prio)`, picks between them:
+
+- "coop" (``csrc/grant_coop.cu``, ``csrc/cycle_core_coop.cu`` on the
+  skeleton ``csrc/arbiter.cuh``): one persistent cooperative launch, the
+  per-channel minimum in L2, one grid barrier, each row read once; for the
+  row-index priority (every `grant` call; `cycle_core` with prio=None,
+  the fused step), at any shape.  It keeps a scratch table between calls
+  (`_scratch`);
+- "three_pass" (``csrc/cycle_core.cu``): fill, accumulate and emit
+  launches with the minimum in device memory, for an explicit priority
+  (`cycle_core` with prio, the compact step), where it measured faster.
+  ``csrc/grant.cu``, its `grant` form, runs only when a call names it.
+
+A call may name its kernel (`kernel=`), as the tests and ``chip_smoke.py``
+do to hold both to the plain versions and to time them against each
+other.  Launches are counted per wrapper and per kernel (`launches`,
+`launches_by_kernel`).
 """
 from __future__ import annotations
 
 import ctypes
+from collections import OrderedDict
 from pathlib import Path
 
 import torch
@@ -20,25 +39,75 @@ from .ref import check_r2, cycle_core_ref, grant_ref
 
 LIBRARY = "netsim"
 SOURCES = [Path(__file__).parent / "csrc" / name
-           for name in ("grant.cu", "cycle_core.cu")]
+           for name in ("grant.cu", "cycle_core.cu", "grant_coop.cu",
+                        "cycle_core_coop.cu")]
+KERNELS = ("coop", "three_pass")
+# the three-pass kernels' grid puts the lanes on its y dimension
+MAX_LANES = 65_535
 _P, _L, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 _ARGTYPES = {
     "netsim_grant": [_P, _P, _P, _P, _P, _P, _L, _P, _L, _P, _P, _P, _I, _I,
                      _I, _I, _P],
     "netsim_cycle_core": [_P, _P, _P, _P, _P, _L, _P, _P, _P, _P, _I, _I,
                           _I, _P],
+    "netsim_grant_coop": [_P, _P, _P, _P, _P, _P, _L, _P, _L, _P, _P, _P,
+                          _I, _I, _I, _I, _P],
+    "netsim_cycle_core_coop": [_P, _P, _P, _P, _L, _P, _P, _P, _P, _I, _I,
+                               _I, _P],
 }
+# library name -> {function name: the bound ctypes function}, bound once
+_BOUND: dict = {}
+# (device, stream, B, E) -> the coop kernel's scratch, kept between calls
+_SCRATCH: OrderedDict = OrderedDict()
+_SCRATCH_KEPT = 8
 
 
-def library() -> ctypes.CDLL:
-    """The built and loaded kernel library (built at first use)."""
-    lib = load_library(LIBRARY, SOURCES)
-    for name, argtypes in _ARGTYPES.items():
-        fn = getattr(lib, name)
-        if fn.argtypes is None:
+def library(name: str = LIBRARY, sources=SOURCES) -> ctypes.CDLL:
+    """The built and loaded kernel library (built at first use), its
+    functions bound once.  Another `name` with edited `sources` loads a
+    variant of it beside it, as ``tools/netsim_phases.py`` does."""
+    lib = load_library(name, sources)
+    if name not in _BOUND:
+        bound = {}
+        for fn_name, argtypes in _ARGTYPES.items():
+            fn = getattr(lib, fn_name)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
+            bound[fn_name] = fn
+        _BOUND[name] = bound
     return lib
+
+
+def _fn(name):
+    bound = _BOUND.get(LIBRARY)
+    if bound is None:
+        library()
+        bound = _BOUND[LIBRARY]
+    return bound[name]
+
+
+def kernel_for(explicit_prio: bool = False) -> str:
+    """The kernel a CUDA call launches: "coop" for the row-index priority
+    (the oracle step's grant, the fused step), "three_pass" for an explicit
+    priority (the compact step), which the coop kernel does not take."""
+    return "three_pass" if explicit_prio else "coop"
+
+
+def _scratch(device, stream, B, E):
+    """The coop kernel's scratch for calls on `stream` at (B, E): the two
+    halves of the table [2, B, E] (all ones) and the arrival and call
+    counts (0), kept for the next call; the last `_SCRATCH_KEPT` shapes
+    are kept."""
+    key = (device, stream, B, E)
+    scratch = _SCRATCH.get(key)
+    if scratch is None:
+        scratch = torch.full((2 * B * E + 2,), -1, dtype=torch.int64,
+                             device=device)
+        scratch[-2:] = 0
+        _SCRATCH[key] = scratch
+        while len(_SCRATCH) > _SCRATCH_KEPT:
+            _SCRATCH.popitem(last=False)
+    return scratch
 
 
 def _check(kernel, name, x, dtype, shape):
@@ -48,114 +117,201 @@ def _check(kernel, name, x, dtype, shape):
 
 
 def _one_device(kernel, args):
-    devices = {x.device for x in args}
-    if len(devices) != 1:
-        raise ValueError(f"{kernel}: inputs on several devices {devices}")
-    device = next(iter(devices))
+    device = args[0].device
+    for x in args:
+        if x.device != device:
+            raise ValueError(f"{kernel}: inputs on several devices "
+                             f"{ {y.device for y in args} }")
     if device.type not in ("cpu", "cuda"):
         raise ValueError(f"{kernel}: unsupported device {device}")
     return device
 
 
-def grant(out, itime, valid, ovc_count, is_eject, ch_busy, ch_alive,
-          *, buf_pkts: int):
-    """One winner per output channel, oldest `itime` first, row ids break
-    ties — the same arguments and result as `ref.grant_ref`, with an
-    optional leading lane dimension: row tensors ``[B?, N]``, channel
-    tensors ``[B?, E]``; returns (win [B?, N] bool, won_ch [B?, E] bool).
+def _pick(name, kernel, B, explicit_prio=False):
+    """`kernel` checked against the call, or the rule's pick."""
+    if kernel is None:
+        kernel = kernel_for(explicit_prio)
+    if kernel == "coop" and explicit_prio:
+        raise ValueError(f"{name}: the coop kernel takes the row-index "
+                         f"priority only (prio=None)")
+    if kernel == "three_pass" and B > MAX_LANES:
+        raise ValueError(f"{name}: the three-pass kernel takes at most "
+                         f"{MAX_LANES} lanes, got {B}")
+    return kernel
 
-    Every CUDA launch adds one to `grant.launches`."""
-    args = (out, itime, valid, ovc_count, is_eject, ch_busy, ch_alive)
-    if _one_device("grant", args).type == "cpu":
-        return grant_ref(*args, buf_pkts=buf_pkts)
-    if out.dim() == 1:
-        win, won = grant(*(x[None] for x in args), buf_pkts=buf_pkts)
-        return win[0], won[0]
+
+def _checked_kernel(name, kernel):
+    if kernel is not None and kernel not in KERNELS:
+        raise ValueError(f"{name}: kernel must be one of {KERNELS} or None, "
+                         f"got {kernel!r}")
+
+
+def _rows(kernel, names, tensors, dtypes, shape):
+    rows = []
+    for name, x, dt in zip(names, tensors, dtypes):
+        if not x.is_contiguous():
+            x = x.contiguous()
+        _check(kernel, name, x, dt, shape)
+        rows.append(x)
+    return rows
+
+
+def _on_current_device(device):
+    """Whether `device` is the current CUDA device (a launch runs on the
+    current device; the wrappers enter the context only when it is not)."""
+    return device.index is None or device.index == \
+        torch.cuda.current_device()
+
+
+def _stream():
+    """The current device's current stream.  The raw handle costs 0.13 us
+    a call against 5.8 us for `torch.cuda.current_stream().cuda_stream`
+    (NVIDIA H100)."""
+    return torch._C._cuda_getCurrentRawStream(torch.cuda.current_device())
+
+
+def grant_operands(out, itime, valid, ovc_count, is_eject, ch_busy,
+                   ch_alive):
+    """The kernel's operands, checked: (row tensors made contiguous, B, N,
+    E).  Raises ValueError on a wrong dtype, shape or stride."""
     B, N = out.shape
     E = ch_busy.shape[-1]
     if B == 0 or N == 0 or E == 0:
         raise ValueError(f"grant: empty problem B={B} N={N} E={E}")
-    rows = [x.contiguous() for x in (out, itime, valid, ovc_count, is_eject)]
-    for name, x, dt in zip(("out", "itime", "valid", "ovc_count", "is_eject"),
-                           rows, (torch.int32, torch.int32, torch.bool,
-                                  torch.int32, torch.bool)):
-        _check("grant", name, x, dt, (B, N))
+    rows = _rows("grant", ("out", "itime", "valid", "ovc_count", "is_eject"),
+                 (out, itime, valid, ovc_count, is_eject),
+                 (torch.int32, torch.int32, torch.bool, torch.int32,
+                  torch.bool), (B, N))
     _check("grant", "ch_busy", ch_busy, torch.int32, (B, E))
     _check("grant", "ch_alive", ch_alive, torch.bool, (B, E))
     if ch_busy.stride(-1) != 1 or ch_alive.stride(-1) != 1:
         raise ValueError("grant: channel tensors must be contiguous along "
                          "the channel axis")
-    win = torch.empty((B, N), dtype=torch.bool, device=out.device)
-    won = torch.empty((B, E), dtype=torch.bool, device=out.device)
-    keys = torch.empty((B, E), dtype=torch.int64, device=out.device)
-    with torch.cuda.device(out.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = library().netsim_grant(
-            *(x.data_ptr() for x in rows),
-            ch_busy.data_ptr(), ch_busy.stride(0),
-            ch_alive.data_ptr(), ch_alive.stride(0),
-            keys.data_ptr(), win.data_ptr(), won.data_ptr(),
-            B, N, E, int(buf_pkts), stream)
+    return rows, B, N, E
+
+
+def grant(out, itime, valid, ovc_count, is_eject, ch_busy, ch_alive,
+          *, buf_pkts: int, kernel: str | None = None):
+    """One winner per output channel, oldest `itime` first, row ids break
+    ties — the same arguments and result as `ref.grant_ref`, with an
+    optional leading lane dimension: row tensors ``[B?, N]``, channel
+    tensors ``[B?, E]``; returns (win [B?, N] bool, won_ch [B?, E] bool).
+    `kernel` names the CUDA kernel ("coop" or "three_pass"; None:
+    `kernel_for`).
+
+    Every CUDA launch adds one to `grant.launches` and to
+    `grant.launches_by_kernel[kernel]`."""
+    args = (out, itime, valid, ovc_count, is_eject, ch_busy, ch_alive)
+    device = _one_device("grant", args)
+    _checked_kernel("grant", kernel)
+    if device.type == "cpu":
+        return grant_ref(*args, buf_pkts=buf_pkts)
+    if out.dim() == 1:
+        win, won = grant(*(x[None] for x in args), buf_pkts=buf_pkts,
+                         kernel=kernel)
+        return win[0], won[0]
+    if not _on_current_device(device):
+        with torch.cuda.device(device):
+            return grant(*args, buf_pkts=buf_pkts, kernel=kernel)
+    rows, B, N, E = grant_operands(*args)
+    kernel = _pick("grant", kernel, B)
+    win = torch.empty((B, N), dtype=torch.bool, device=device)
+    won = torch.empty((B, E), dtype=torch.bool, device=device)
+    stream = _stream()
+    ptrs = [x.data_ptr() for x in rows]
+    channels = (ch_busy.data_ptr(), ch_busy.stride(0), ch_alive.data_ptr(),
+                ch_alive.stride(0))
+    table = (_scratch(device, stream, B, E) if kernel == "coop" else
+             torch.empty((B, E), dtype=torch.int64, device=device))
+    rc = _fn(f"netsim_grant{'_coop' if kernel == 'coop' else ''}")(
+        *ptrs, *channels, table.data_ptr(), win.data_ptr(), won.data_ptr(),
+        B, N, E, int(buf_pkts), stream)
     if rc != 0:
-        raise RuntimeError(f"netsim grant kernel launch failed: CUDA error "
-                           f"{rc}")
+        raise RuntimeError(f"netsim grant {kernel} kernel launch failed: "
+                           f"CUDA error {rc}")
     grant.launches += 1
+    grant.launches_by_kernel[kernel] += 1
     return win, won
 
 
 grant.launches = 0
+grant.launches_by_kernel = dict.fromkeys(KERNELS, 0)
 
 
-def cycle_core(out, itime, ok, ch_ok, *, r2: int, prio=None):
-    """The fused and compact steps' arbitration core — the same arguments
-    and result as `ref.cycle_core_ref`, with an optional leading lane
-    dimension: row tensors ``[B?, N]``, ``ch_ok [B?, E]``; returns
-    (won_ch [B?, E] bool, wprio [B?, E] int32, win [B?, N] bool).
-    `prio=None` passes a null pointer: the kernel uses the row index.
-
-    Every CUDA launch adds one to `cycle_core.launches`."""
-    args = (out, itime, ok, ch_ok) + (() if prio is None else (prio,))
-    if _one_device("cycle_core", args).type == "cpu":
-        return cycle_core_ref(out, itime, ok, ch_ok, r2=r2, prio=prio)
-    if out.dim() == 1:
-        won, wprio, win = cycle_core(
-            out[None], itime[None], ok[None], ch_ok[None], r2=r2,
-            prio=None if prio is None else prio[None])
-        return won[0], wprio[0], win[0]
+def cycle_core_operands(out, itime, ok, ch_ok, r2, prio=None):
+    """The kernel's operands, checked: (row tensors made contiguous — out,
+    itime, ok and prio if given —, B, N, E).  Raises ValueError on a wrong
+    r2, dtype, shape or stride."""
     B, N = out.shape
     E = ch_ok.shape[-1]
     if B == 0 or N == 0 or E == 0:
         raise ValueError(f"cycle_core: empty problem B={B} N={N} E={E}")
     check_r2(r2, N, prio)
-    rows = [x.contiguous() for x in args[:3]]
     names = ("out", "itime", "ok")
+    tensors = (out, itime, ok)
     dtypes = (torch.int32, torch.int32, torch.bool)
     if prio is not None:
-        rows.append(prio.contiguous())
-        names, dtypes = names + ("prio",), dtypes + (torch.int32,)
-    for name, x, dt in zip(names, rows, dtypes):
-        _check("cycle_core", name, x, dt, (B, N))
+        names, tensors = names + ("prio",), tensors + (prio,)
+        dtypes = dtypes + (torch.int32,)
+    rows = _rows("cycle_core", names, tensors, dtypes, (B, N))
     _check("cycle_core", "ch_ok", ch_ok, torch.bool, (B, E))
     if ch_ok.stride(-1) != 1:
         raise ValueError("cycle_core: ch_ok must be contiguous along the "
                          "channel axis")
-    won = torch.empty((B, E), dtype=torch.bool, device=out.device)
-    wprio = torch.empty((B, E), dtype=torch.int32, device=out.device)
-    win = torch.empty((B, N), dtype=torch.bool, device=out.device)
-    keys = torch.empty((B, E), dtype=torch.int64, device=out.device)
-    with torch.cuda.device(out.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = library().netsim_cycle_core(
-            rows[0].data_ptr(), rows[1].data_ptr(), rows[2].data_ptr(),
-            rows[3].data_ptr() if prio is not None else None,
-            ch_ok.data_ptr(), ch_ok.stride(0), keys.data_ptr(),
-            win.data_ptr(), won.data_ptr(), wprio.data_ptr(), B, N, E,
+    return rows, B, N, E
+
+
+def cycle_core(out, itime, ok, ch_ok, *, r2: int, prio=None,
+               kernel: str | None = None):
+    """The fused and compact steps' arbitration core — the same arguments
+    and result as `ref.cycle_core_ref`, with an optional leading lane
+    dimension: row tensors ``[B?, N]``, ``ch_ok [B?, E]``; returns
+    (won_ch [B?, E] bool, wprio [B?, E] int32, win [B?, N] bool).
+    `prio=None` passes a null pointer: the kernel uses the row index.
+    `kernel` names the CUDA kernel ("coop", row-index priority only, or
+    "three_pass"; None: `kernel_for`).
+
+    Every CUDA launch adds one to `cycle_core.launches` and to
+    `cycle_core.launches_by_kernel[kernel]`."""
+    args = (out, itime, ok, ch_ok) + (() if prio is None else (prio,))
+    device = _one_device("cycle_core", args)
+    _checked_kernel("cycle_core", kernel)
+    if device.type == "cpu":
+        return cycle_core_ref(out, itime, ok, ch_ok, r2=r2, prio=prio)
+    if out.dim() == 1:
+        won, wprio, win = cycle_core(
+            out[None], itime[None], ok[None], ch_ok[None], r2=r2,
+            prio=None if prio is None else prio[None], kernel=kernel)
+        return won[0], wprio[0], win[0]
+    if not _on_current_device(device):
+        with torch.cuda.device(device):
+            return cycle_core(out, itime, ok, ch_ok, r2=r2, prio=prio,
+                              kernel=kernel)
+    rows, B, N, E = cycle_core_operands(out, itime, ok, ch_ok, r2, prio)
+    kernel = _pick("cycle_core", kernel, B, prio is not None)
+    won = torch.empty((B, E), dtype=torch.bool, device=device)
+    wprio = torch.empty((B, E), dtype=torch.int32, device=device)
+    win = torch.empty((B, N), dtype=torch.bool, device=device)
+    stream = _stream()
+    ptrs = [x.data_ptr() for x in rows]
+    outs = (win.data_ptr(), won.data_ptr(), wprio.data_ptr(), B, N, E,
             stream)
+    if kernel == "coop":
+        rc = _fn("netsim_cycle_core_coop")(
+            *ptrs, ch_ok.data_ptr(), ch_ok.stride(0),
+            _scratch(device, stream, B, E).data_ptr(), *outs)
+    else:
+        keys = torch.empty((B, E), dtype=torch.int64, device=device)
+        rc = _fn("netsim_cycle_core")(
+            *ptrs[:3], ptrs[3] if prio is not None else None,
+            ch_ok.data_ptr(), ch_ok.stride(0), keys.data_ptr(), *outs)
     if rc != 0:
-        raise RuntimeError(f"netsim cycle_core kernel launch failed: CUDA "
-                           f"error {rc}")
+        raise RuntimeError(f"netsim cycle_core {kernel} kernel launch "
+                           f"failed: CUDA error {rc}")
     cycle_core.launches += 1
+    cycle_core.launches_by_kernel[kernel] += 1
     return won, wprio, win
 
 
 cycle_core.launches = 0
+cycle_core.launches_by_kernel = dict.fromkeys(KERNELS, 0)

@@ -24,6 +24,7 @@ from repro_torch.kernels.flash_attention import attention_ref
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.netsim import (cycle_core, cycle_core_ref, grant,
                                        grant_ref)
+from repro_torch.kernels.netsim import ops as netsim_ops
 from repro_torch.kernels.rglru import ops as rglru_ops
 from repro_torch.kernels.rglru import rglru_scan_ref
 from repro_torch.kernels.ssd_scan import ops as ssd_ops
@@ -53,23 +54,70 @@ def _random_inputs(rng, B, N, E, device):
     return [torch.as_tensor(c).to(device) for c in cols]
 
 
-@pytest.mark.parametrize("B,N,E", [(1, 1, 1), (1, 1000, 301),
-                                   (4, 20011, 1029)])
-def test_grant_kernel_matches_plain_version(cuda, B, N, E):
+NETSIM_KERNELS = ("coop", "three_pass")
+# shapes for both netsim kernels: one row and channel, ragged N, N % 4 == 0
+# (the coop kernel's vector path), one channel for every row (ties), one
+# lane of the radix-32 network's channels
+NETSIM_SHAPES = [(1, 1, 1), (1, 1000, 301), (4, 20011, 1029),
+                 (4, 20012, 1029), (1, 5000, 1), (4, 8000, 241280)]
+
+
+@pytest.mark.parametrize("B,N,E", NETSIM_SHAPES)
+@pytest.mark.parametrize("itime_lo", [0, 2**31 - 8])
+@pytest.mark.parametrize("kernel", NETSIM_KERNELS)
+def test_grant_kernel_matches_plain_version(cuda, B, N, E, itime_lo, kernel):
+    """Bit for bit, each kernel forced, with stranded rows (out = -1), age
+    ties, busy and dead channels, ages near 2^31, a shared alive mask."""
     args = _random_inputs(np.random.default_rng(N), B, N, E, cuda)
+    args[1] += itime_lo
     before = grant.launches
-    got = grant(*args, buf_pkts=8)
+    before_kernel = grant.launches_by_kernel[kernel]
+    got = grant(*args, buf_pkts=8, kernel=kernel)
     torch.cuda.synchronize()
     assert grant.launches == before + 1
+    assert grant.launches_by_kernel[kernel] == before_kernel + 1
     want = grant_ref(*args, buf_pkts=8)
     assert all(torch.equal(a, b) for a, b in zip(got, want))
     # one lane equals the same lane run alone, shared channel masks too
     alive = args[6][:1].expand(B, E)
-    got = grant(*args[:6], alive, buf_pkts=8)
+    got = grant(*args[:6], alive, buf_pkts=8, kernel=kernel)
+    assert all(torch.equal(a, b) for a, b in
+               zip(got, grant_ref(*args[:6], alive, buf_pkts=8)))
     for b in range(B):
-        one = grant(*(x[b] for x in args[:6]), alive[b], buf_pkts=8)
+        one = grant(*(x[b] for x in args[:6]), alive[b], buf_pkts=8,
+                    kernel=kernel)
         assert torch.equal(one[0], got[0][b]) and torch.equal(one[1],
                                                               got[1][b])
+
+
+def test_grant_coop_scratch_carries_over_calls(cuda):
+    """The coop kernel keeps its table between calls (two halves, the
+    call count on the device): calls on fresh inputs, on two shapes in
+    turn and on a second stream each equal the plain version."""
+    rng = np.random.default_rng(9)
+    side = torch.cuda.Stream()
+    for i in range(6):
+        B, N, E = (4, 2000, 301) if i % 2 else (2, 3000, 77)
+        args = _random_inputs(rng, B, N, E, cuda)
+        want = grant_ref(*args, buf_pkts=8)
+        with torch.cuda.stream(side if i >= 4 else
+                               torch.cuda.current_stream()):
+            got = grant(*args, buf_pkts=8, kernel="coop")
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+def test_three_pass_lane_limit(cuda):
+    """More lanes than a grid's y dimension: the three-pass kernel
+    refuses, the coop kernel (the rule's pick) takes them."""
+    B = netsim_ops.MAX_LANES + 1
+    args = _random_inputs(np.random.default_rng(2), B, 4, 1, cuda)
+    assert netsim_ops.kernel_for() == "coop"
+    with pytest.raises(ValueError, match="lanes"):
+        grant(*args, buf_pkts=8, kernel="three_pass")
+    got = grant(*args, buf_pkts=8)
+    assert all(torch.equal(a, b) for a, b in
+               zip(got, grant_ref(*args, buf_pkts=8)))
 
 
 def test_simulator_on_card_equals_cpu(cuda):
@@ -95,31 +143,56 @@ def _random_cycle_inputs(rng, B, N, E, itime_lo, explicit_prio, device):
     return [t(x) for x in (out, itime, ok, ch_ok)], t(prio), r2
 
 
-@pytest.mark.parametrize("B,N,E", [(1, 1, 1), (1, 1000, 301),
-                                   (4, 20011, 1029)])
+@pytest.mark.parametrize("B,N,E", NETSIM_SHAPES)
 @pytest.mark.parametrize("explicit_prio", [False, True])
 @pytest.mark.parametrize("itime_lo", [0, 2**31 - 8])
+@pytest.mark.parametrize("kernel", NETSIM_KERNELS)
 def test_cycle_core_kernel_matches_plain_version(cuda, B, N, E,
-                                                 explicit_prio, itime_lo):
-    """Bit for bit, with stranded ok rows (out = -1), ties, masked
-    channels, an explicit non-iota prio and ages where the reference's
-    int32 key would overflow."""
+                                                 explicit_prio, itime_lo,
+                                                 kernel):
+    """Bit for bit, each kernel forced, with stranded ok rows (out = -1),
+    ties, masked channels, an explicit non-iota prio (the three-pass
+    kernel's alone: the coop kernel refuses it) and ages where the
+    reference's int32 key would overflow."""
     rng = np.random.default_rng(N + itime_lo % 97)
     args, prio, r2 = _random_cycle_inputs(rng, B, N, E, itime_lo,
                                           explicit_prio, cuda)
+    if kernel == "coop" and explicit_prio:
+        with pytest.raises(ValueError, match="row-index priority"):
+            cycle_core(*args, r2=r2, prio=prio, kernel=kernel)
+        return
     before = cycle_core.launches
-    got = cycle_core(*args, r2=r2, prio=prio)
+    before_kernel = cycle_core.launches_by_kernel[kernel]
+    got = cycle_core(*args, r2=r2, prio=prio, kernel=kernel)
     torch.cuda.synchronize()
     assert cycle_core.launches == before + 1
+    assert cycle_core.launches_by_kernel[kernel] == before_kernel + 1
     want = cycle_core_ref(*args, r2=r2, prio=prio)
     assert all(torch.equal(a, b) for a, b in zip(got, want))
     # one lane equals the same lane run alone, a shared channel mask too
     ch_ok = args[3][:1].expand(B, E)
-    got = cycle_core(*args[:3], ch_ok, r2=r2, prio=prio)
+    got = cycle_core(*args[:3], ch_ok, r2=r2, prio=prio, kernel=kernel)
+    assert all(torch.equal(a, b) for a, b in zip(
+        got, cycle_core_ref(*args[:3], ch_ok, r2=r2, prio=prio)))
     for b in range(B):
         one = cycle_core(*(x[b] for x in args[:3]), ch_ok[b], r2=r2,
-                         prio=None if prio is None else prio[b])
+                         prio=None if prio is None else prio[b],
+                         kernel=kernel)
         assert all(torch.equal(o, g[b]) for o, g in zip(one, got))
+
+
+@pytest.mark.parametrize("B,N,E", [
+    (4, 204672, 30176),     # the fused step's shape
+    (1, 1200000, 1029),     # more quads than two a thread: the loop turns
+    (2, 8001, 1029),        # N % 4 != 0: plain loads
+])
+def test_cycle_core_coop_shapes(cuda, B, N, E):
+    """The coop kernel's paths, bit for bit."""
+    args, _, r2 = _random_cycle_inputs(np.random.default_rng(N), B, N, E, 0,
+                                       False, cuda)
+    got = cycle_core(*args, r2=r2, kernel="coop")
+    want = cycle_core_ref(*args, r2=r2)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
 
 
 @pytest.mark.parametrize("impl", ["fused", "compact"])

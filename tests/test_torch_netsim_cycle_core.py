@@ -171,3 +171,68 @@ def test_r2_contract_checked():
         cycle_core_ref(z, z, ok, ch, r2=8, prio=z + 8)
     check_r2(8, 5, None)
     check_r2(16, 5, z + 15)
+
+
+# --- the CUDA wrapper's checks, which need no card -------------------------
+
+from repro_torch.kernels.netsim import ops as netsim_ops
+
+
+def _good_cycle_args(B=2, N=10, E=4, explicit_prio=True):
+    rng = np.random.default_rng(1)
+    lanes = [_tables(rng, N, E, explicit_prio=explicit_prio)
+             for _ in range(B)]
+    cols = [torch.as_tensor(np.stack([l[i] for l in lanes]))
+            for i in range(4)]
+    prio = (torch.as_tensor(np.stack([l[4] for l in lanes]))
+            if explicit_prio else None)
+    return cols, prio, max(l[5] for l in lanes)
+
+
+@pytest.mark.parametrize("index,bad,match", [
+    (0, lambda x: x.long(), "out must be torch.int32"),
+    (1, lambda x: x.float(), "itime must be torch.int32"),
+    (2, lambda x: x.int(), "ok must be torch.bool"),
+    (3, lambda x: x[:, :-1].int(), "ch_ok must be torch.bool"),
+    (3, lambda x: torch.cat([x, x], 1)[:, ::2],
+     "ch_ok must be contiguous along the channel axis"),
+    (4, lambda x: x.long(), "prio must be torch.int32"),
+])
+def test_cycle_core_operands_rejections(index, bad, match):
+    cols, prio, r2 = _good_cycle_args()
+    args = cols + [prio]
+    args[index] = bad(args[index])
+    with pytest.raises(ValueError, match=match):
+        netsim_ops.cycle_core_operands(*args[:4], r2, args[4])
+
+
+def test_cycle_core_operands_r2_and_empty():
+    cols, prio, r2 = _good_cycle_args(explicit_prio=False)
+    with pytest.raises(ValueError, match="power of two"):
+        netsim_ops.cycle_core_operands(*cols, 6)
+    with pytest.raises(ValueError, match="empty problem"):
+        netsim_ops.cycle_core_operands(cols[0][:, :0], cols[1][:, :0],
+                                       cols[2][:, :0], cols[3], r2)
+    rows, B, N, E = netsim_ops.cycle_core_operands(*cols, r2)
+    assert (B, N, E) == (2, 10, 4) and len(rows) == 3
+
+
+@pytest.mark.parametrize("kernel", netsim_ops.KERNELS)
+@pytest.mark.parametrize("explicit_prio", [False, True])
+def test_cpu_named_kernel_runs_the_plain_version(kernel, explicit_prio):
+    """On the CPU a named kernel still runs the plain version and counts
+    no launch (the coop kernel's refusal of an explicit priority is a
+    CUDA-side check, `ops._pick`)."""
+    cols, prio, r2 = _good_cycle_args(B=3, N=50, E=9,
+                                      explicit_prio=explicit_prio)
+    before = cycle_core.launches, dict(cycle_core.launches_by_kernel)
+    got = cycle_core(*cols, r2=r2, prio=prio, kernel=kernel)
+    want = cycle_core_ref(*cols, r2=r2, prio=prio)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert (cycle_core.launches, cycle_core.launches_by_kernel) == before
+
+
+def test_cycle_core_rejects_unknown_kernel():
+    cols, prio, r2 = _good_cycle_args()
+    with pytest.raises(ValueError, match="kernel must be one of"):
+        cycle_core(*cols, r2=r2, prio=prio, kernel="three-pass")

@@ -149,3 +149,114 @@ def test_cpu_grant_is_the_plain_version_and_counts_no_launch():
     assert grant.launches == before
     assert all(torch.equal(a, b) for a, b in zip(got, want))
 
+
+
+# --- the CUDA wrapper's rule and checks, which need no card -----------------
+
+from repro_torch.kernels.netsim import ops as netsim_ops
+
+
+@pytest.mark.parametrize("explicit_prio,want", [
+    (False, "coop"),         # every grant call; the fused step
+    (True, "three_pass"),    # the compact step
+])
+def test_kernel_for_rule(explicit_prio, want):
+    assert netsim_ops.kernel_for(explicit_prio) == want
+
+
+# each registered paper network's channels E and request rows N a lane
+# (`fused.compact_rows`), as PERF.md lists them
+PAPER_NETWORKS = [
+    ("paper_radix16_switchless", 30176, 204672),
+    ("paper_radix16_dragonfly", 6560, 43296),
+    ("paper_radix32_dragonfly", 92800, 612480),
+    ("paper_radix32_switchless", 241280, 1670400),
+]
+
+
+@pytest.mark.parametrize("params,E,N", PAPER_NETWORKS)
+def test_paper_networks_land_on_the_one_launch_kernel(params, E, N):
+    """At 4 lanes every registered paper network's oracle grant and fused
+    step run the coop kernel, its compact step (explicit priority, C =
+    ceil(N / 4) rows) the three-pass one, within its lane limit."""
+    from repro_torch.core import topology as T
+    from repro_torch.core.engine.fused import compact_rows
+    from repro_torch.core.simulator import SimConfig
+    p = getattr(T, params)()
+    build = (T.build_switchless if isinstance(p, T.SwitchlessParams)
+             else T.build_switch_dragonfly)
+    net = build(p, params)
+    assert (net.num_channels, compact_rows(net, SimConfig())) == (E, N)
+    assert netsim_ops._pick("grant", None, 4) == "coop"
+    assert netsim_ops._pick("cycle_core", None, 4, False) == "coop"
+    assert netsim_ops._pick("cycle_core", None, 4, True) == "three_pass"
+
+
+def test_pick_refuses_what_a_kernel_cannot_take():
+    with pytest.raises(ValueError, match="row-index priority"):
+        netsim_ops._pick("cycle_core", "coop", 4, True)
+    with pytest.raises(ValueError, match="lanes"):
+        netsim_ops._pick("grant", "three_pass", 65536)
+    assert netsim_ops._pick("grant", None, 65536) == "coop"
+    assert netsim_ops._pick("grant", "three_pass", 4) == "three_pass"
+
+
+def _good_grant_args(B=2, N=8, E=3):
+    rng = np.random.default_rng(0)
+    cols = [np.stack(c) for c in zip(*(_random_inputs(rng, N, E)
+                                       for _ in range(B)))]
+    return [torch.as_tensor(c) for c in cols]
+
+
+@pytest.mark.parametrize("index,bad,match", [
+    (0, lambda x: x.float(), "out must be torch.int32"),
+    (1, lambda x: x.long(), "itime must be torch.int32"),
+    (2, lambda x: x.int(), "valid must be torch.bool"),
+    (3, lambda x: x[:, :-1], "ovc_count must be torch.int32 of shape"),
+    (4, lambda x: x.int(), "is_eject must be torch.bool"),
+    (5, lambda x: x[:1], "ch_busy must be torch.int32 of shape"),
+    (6, lambda x: torch.cat([x, x], 1)[:, ::2],
+     "contiguous along the channel axis"),
+])
+def test_grant_operands_rejections(index, bad, match):
+    args = _good_grant_args()
+    args[index] = bad(args[index])
+    with pytest.raises(ValueError, match=match):
+        netsim_ops.grant_operands(*args)
+
+
+def test_grant_operands_empty_and_contiguous_rows():
+    args = _good_grant_args()
+    with pytest.raises(ValueError, match="empty problem"):
+        netsim_ops.grant_operands(*(x[:, :0] if i < 5 else x
+                                    for i, x in enumerate(args)))
+    strided = [torch.stack([x, x], -1).flatten(1)[:, ::2] if i < 5 else x
+               for i, x in enumerate(args)]
+    assert not strided[0].is_contiguous()
+    rows, B, N, E = netsim_ops.grant_operands(*strided)
+    assert (B, N, E) == (2, 8, 3)
+    assert all(r.is_contiguous() and torch.equal(r, a)
+               for r, a in zip(rows, args))
+
+
+def test_wrapper_rejects_devices_and_kernel_names():
+    args = _good_grant_args()
+    meta = [x.to("meta") for x in args]
+    with pytest.raises(ValueError, match="several devices"):
+        grant(*args[:6], meta[6], buf_pkts=8)
+    with pytest.raises(ValueError, match="unsupported device"):
+        grant(*meta, buf_pkts=8)
+    with pytest.raises(ValueError, match="kernel must be one of"):
+        grant(*args, buf_pkts=8, kernel="cluster")
+
+
+@pytest.mark.parametrize("kernel", netsim_ops.KERNELS)
+def test_cpu_named_kernel_runs_the_plain_version(kernel):
+    """On the CPU a named kernel still runs the plain version and counts
+    no launch."""
+    args = _good_grant_args(B=3, N=40, E=7)
+    before = grant.launches, dict(grant.launches_by_kernel)
+    got = grant(*args, buf_pkts=8, kernel=kernel)
+    want = grant_ref(*args, buf_pkts=8)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert (grant.launches, grant.launches_by_kernel) == before
