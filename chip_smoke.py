@@ -67,10 +67,14 @@ Phases (any failure ends the run with a nonzero exit):
    held to 1e-4 in fp32, y to 2e-2 per output row and the state to 1e-4
    in bf16; the bf16 serving shape is timed beside the FMA kernel on the
    same inputs;
-8. the RG-LRU scan kernel against `rglru_scan_ref` on the card: the
-   shapes of the reference's kernel tests (with S = 2048 at a = 0.999)
-   and the recurrentgemma-2b prefill's (B = 4, S = 4096, R = 2560), at
-   1e-5; the serving shape is timed;
+8. the RG-LRU scan kernels on the card, each case on the ring kernel that
+   the rule names, held bit for bit to the direct kernel on the same
+   inputs and at 1e-5 to `rglru_scan_ref`: the shapes of the reference's
+   kernel tests (with S = 2048 at a = 0.999), R off the ring's 32 channels
+   (37, 100), S off its 16-step stage (1, 37, 300), B 1 and 4, a base off
+   16 bytes, and the recurrentgemma-2b prefill's (B = 4, S = 4096,
+   R = 2560); the serving shape is timed, the ring kernel beside the
+   direct one;
 9. the LM serving path at full width, each model in bf16 with seeded
    random weights, `generate` with batch 4 and 16 new tokens, prefill on
    the kernels, timed over 5 samples (median and range of prefill ms and
@@ -78,7 +82,8 @@ Phases (any failure ends the run with a nonzero exit):
    a layer), `mamba2-780m` (prompt 2048; one ssd_scan launch a layer) and
    `recurrentgemma-2b` (prompt 4096, twice its window; one rglru launch a
    recurrent layer, one flash_attention launch a local layer), every
-   flash_attention and ssd_scan launch on its tensor-core kernel; each then
+   flash_attention and ssd_scan launch on its tensor-core kernel and every
+   rglru launch on the ring kernel; each then
    runs a kernel prefill and one decode step against the same cache,
    their last-position logits held to one naive forward over the prompt
    and that token: 2e-2 in bf16 (with SSM layers, or twice the naive
@@ -594,7 +599,7 @@ def _reset_launches():
             fn.launches_by_kernel[kernel] = 0
     for fn in _lm_kernels().values():
         fn.launches = 0
-    for name in ("flash_attention", "ssd_scan"):
+    for name in ("flash_attention", "ssd_scan", "rglru"):
         by_kernel = _lm_kernels()[name].launches_by_kernel
         for kernel in by_kernel:
             by_kernel[kernel] = 0
@@ -789,7 +794,7 @@ def phase_serve_profile(model, cfg, tokens, device, steps=4):
                 wall = time.perf_counter() - t0
             del logits
             profile_report(prof, wall, f"{cfg.name} {mode}, {n} step(s)",
-                           n, "step", ("flash_fwd", "ssd_scan", "rglru_scan"))
+                           n, "step", ("flash_fwd", "ssd_scan", "rglru"))
 
 
 SMALL = dict(a=2, b=2, m=2, n=4, noc=2, g=3)
@@ -1182,58 +1187,93 @@ def phase_ssd_timing(args):
 RGLRU_SERVING = (SERVE_BATCH, 4096, 2560)
 
 
-def _rglru_inputs(seed, shape, device, const=None):
+def _rglru_inputs(seed, shape, device, const=None, offset=0):
     """a in [0.79, 0.99] and b normal * 0.1 as the reference's sweep
-    draws them, or the constants `const` = (a, b)."""
+    draws them, or the constants `const` = (a, b); with `offset`, views
+    that start `offset` elements into their buffers."""
     import torch
+    n = int(np.prod(shape)) + offset
     if const is not None:
-        return (torch.full(shape, const[0], device=device),
-                torch.full(shape, const[1], device=device))
-    g = torch.Generator(device=device).manual_seed(seed)
-    a = torch.sigmoid(torch.randn(shape, generator=g, device=device)) \
-        * 0.2 + 0.79
-    return a, torch.randn(shape, generator=g, device=device) * 0.1
+        a, b = (torch.full((n,), c, device=device) for c in const)
+    else:
+        g = torch.Generator(device=device).manual_seed(seed)
+        a = torch.sigmoid(torch.randn(n, generator=g, device=device)) \
+            * 0.2 + 0.79
+        b = torch.randn(n, generator=g, device=device) * 0.1
+    return tuple(x[offset:].view(shape) for x in (a, b))
+
+
+# (label, shape, constants, base offset in elements); the serving shape last
+RGLRU_CASES = (
+    ("sweep", (1, 128, 128), None, 0), ("sweep", (2, 300, 192), None, 0),
+    ("sweep", (2, 64, 512), None, 0),
+    ("long decay a = 0.999", (1, 2048, 128), (0.999, 0.01), 0),
+    ("S 1, R 37", (4, 1, 37), None, 0), ("S 37, R 100", (1, 37, 100), None, 0),
+    ("S 300, R 37", (4, 300, 37), None, 0),
+    ("S 300, R 100", (1, 300, 100), None, 0),
+    ("S 37", (4, 37, 2560), None, 0),
+    ("base off 16 bytes (4-byte copies)", (2, 64, 512), None, 1),
+    ("serving prefill", RGLRU_SERVING, None, 0))
 
 
 def phase_rglru(device):
-    """The kernel against `rglru_scan_ref` on the card at 1e-5 of the
-    largest value, the reference's bar; returns (max abs error, the
-    serving shape's inputs)."""
+    """Each case on the kernel the rule names (the ring kernel), bit for
+    bit against the direct kernel on the same inputs and against
+    `rglru_scan_ref` at 1e-5 of the largest value, the reference's bar;
+    returns (max abs error, the serving shape's inputs)."""
     import torch
     from repro_torch.kernels.rglru import ops, rglru_scan_ref
-    cases = [("sweep", (1, 128, 128), None), ("sweep", (2, 300, 192), None),
-             ("sweep", (2, 64, 512), None),
-             ("long decay a = 0.999", (1, 2048, 128), (0.999, 0.01)),
-             ("serving prefill", RGLRU_SERVING, None)]
+    kernel = ops.kernel_for()
+    check(kernel == "ring", f"rglru: the rule names {kernel!r}")
     worst = 0.0
-    for i, (label, shape, const) in enumerate(cases):
-        a, b = _rglru_inputs(200 + i, shape, device, const)
+    for i, (label, shape, const, offset) in enumerate(RGLRU_CASES):
+        a, b = _rglru_inputs(200 + i, shape, device, const, offset)
+        before = dict(ops.rglru_scan.launches_by_kernel)
         got = ops.rglru_scan(a, b)
+        torch.cuda.synchronize()
+        by_kernel = dict(ops.rglru_scan.launches_by_kernel)
+        check(by_kernel == dict(before, ring=before["ring"] + 1),
+              f"rglru {label}: launches by kernel {before} -> {by_kernel}, "
+              f"want one more on the ring kernel")
+        direct = ops.rglru_scan(a, b, kernel="direct")
         want = rglru_scan_ref(a, b)
         torch.cuda.synchronize()
         check(bool(torch.isfinite(got).all()), f"rglru {label}: non-finite")
+        check(torch.equal(got, direct),
+              f"rglru {label} {shape}: the ring kernel != the direct kernel "
+              f"(max abs {float((got - direct).abs().max()):.3e})")
         diff = float((got - want).abs().max())
         rel = diff / float(want.abs().max())
         check(rel < 1e-5, f"rglru {label} {shape}: relative error {rel}")
         worst = max(worst, diff)
-        print(f"[rglru] {label} {shape}: kernel == rglru_scan_ref (max abs "
-              f"{diff:.3e}, relative {rel:.3e})")
+        print(f"[rglru] {label} {shape}: ring kernel == direct kernel bit "
+              f"for bit; vs rglru_scan_ref max abs {diff:.3e}, relative "
+              f"{rel:.3e}")
     return worst, (a, b)
 
 
 def phase_rglru_timing(a, b):
+    """The ring kernel, the direct kernel and the plain version on the same
+    inputs at the served shape, against the bound: a and b read once and h
+    written once at 3.35 TB/s."""
     from repro_torch.kernels.rglru import ops, rglru_scan_ref
     B, S, R = a.shape
     ms = cuda_ms(lambda: ops.rglru_scan(a, b), 20)
+    direct_ms = cuda_ms(lambda: ops.rglru_scan(a, b, kernel="direct"), 20)
     plain_ms = cuda_ms(lambda: rglru_scan_ref(a, b), 2)
     nbytes = 3 * a.numel() * a.element_size()
     bound_ms = nbytes / H100_BYTES_PER_S * 1e3
-    print(f"[rglru] B={B} S={S} R={R} fp32: kernel {ms:.4f} ms/launch, "
-          f"plain {plain_ms:.4f} ms, bound {bound_ms * 1e3:.2f} us ({nbytes} "
-          f"bytes at 3.35 TB/s; {2 * a.numel()} operations, nothing beside "
-          f"them); library call: none")
+    print(f"[rglru] B={B} S={S} R={R} fp32: ring kernel {ms:.4f} ms/launch "
+          f"({bound_ms / ms:.3f} of the bound), the direct kernel on the "
+          f"same inputs {direct_ms:.4f} ms ({bound_ms / direct_ms:.3f}), "
+          f"plain {plain_ms:.4f} ms, bound {bound_ms * 1e3:.2f} us "
+          f"({nbytes} bytes at 3.35 TB/s; {2 * a.numel()} operations, "
+          f"nothing beside them); library call: none")
+    check(ms < direct_ms, f"rglru: the ring kernel ({ms:.4f} ms) is not "
+                          f"faster than the direct kernel ({direct_ms:.4f} "
+                          f"ms)")
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by="bytes", library_ms=None)
+                bound_by="bytes", library_ms=None, direct_ms=direct_ms)
 
 
 def expected_launches(cfg):
@@ -1255,6 +1295,7 @@ def phase_serve(device, arch, S, profile=False):
     import torch
     from repro_torch.configs.registry import get_config
     from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.rglru import ops as rglru_ops
     from repro_torch.kernels.ssd_scan import ops as ssd_ops
     from repro_torch.launch.serve import generate
     from repro_torch.models import transformer as TF
@@ -1273,13 +1314,16 @@ def phase_serve(device, arch, S, profile=False):
     torch.cuda.reset_peak_memory_stats()
     kernels = _lm_kernels()
     # the kernel each bf16 prefill launch runs: attention at the model's hd
-    # (llama 128, recurrentgemma 256) and mamba2's scan on the tensor cores
+    # (llama 128, recurrentgemma 256) and mamba2's scan on the tensor cores,
+    # recurrentgemma's fp32 RG-LRU scan on the ring kernel
     rules = {}
     if expected_launches(cfg)["flash_attention"]:
         rules["flash_attention"] = fa_ops.kernel_for(cfg.torch_dtype, cfg.hd)
     if cfg.ssm is not None:
         rules["ssd_scan"] = ssd_ops.kernel_for(
             cfg.torch_dtype, cfg.ssm.head_dim, cfg.ssm.d_state)
+    if expected_launches(cfg)["rglru"]:
+        rules["rglru"] = rglru_ops.kernel_for()
     prefill_ms, decode_ms = [], []
     for _ in range(SERVE_SAMPLES):
         _reset_launches()
@@ -1294,7 +1338,7 @@ def phase_serve(device, arch, S, profile=False):
         check(launches == expected_launches(cfg),
               f"{arch}: launches {launches} in one prefill, want "
               f"{expected_launches(cfg)} (one a layer of the kernel's kind)")
-        for name in ("flash_attention", "ssd_scan"):
+        for name in ("flash_attention", "ssd_scan", "rglru"):
             kernel = rules.get(name)
             by_kernel = dict(kernels[name].launches_by_kernel)
             want = {k: launches[name] * (k == kernel) for k in by_kernel}
@@ -1547,6 +1591,16 @@ def main(argv=None):
         kernel: sum(n["ssd_scan_by_kernel"][kernel] for n in served.values())
         for kernel in ("wgmma", "fma")}
     ssd_entry["fma_ms"] = ssd_t["fma_ms"]
+    # recurrentgemma-2b's prefill: every launch on the ring kernel; the
+    # direct kernel's time on the same inputs beside it
+    rglru_entry = kernel_entry(
+        "rglru", "src/repro_torch/kernels/rglru/csrc/rglru_ring.cu",
+        "src/repro/kernels/rglru/kernel.py:20",
+        sum(n["rglru"] for n in served.values()), rglru_err, rglru_t)
+    rglru_entry["launches_by_kernel"] = {
+        kernel: sum(n["rglru_by_kernel"][kernel] for n in served.values())
+        for kernel in ("ring", "direct")}
+    rglru_entry["direct_ms"] = rglru_t["direct_ms"]
     fa_entry["by_path"] = {
         "llama3.2-3b": dict(fa_t["serving prefill"],
                             launches=served["llama3.2-3b"]["flash_attention"]),
@@ -1558,10 +1612,7 @@ def main(argv=None):
         cycle_entry,
         fa_entry,
         ssd_entry,
-        kernel_entry("rglru", "src/repro_torch/kernels/rglru/csrc/rglru.cu",
-                     "src/repro/kernels/rglru/kernel.py:20",
-                     sum(n["rglru"] for n in served.values()), rglru_err,
-                     rglru_t)]}))
+        rglru_entry]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,7 +1,8 @@
 """Tests of the port that need the card (marker `cuda`; they skip where
 `torch.cuda.is_available()` is false, since a CUDA kernel has no CPU mode):
 the netsim kernels and the simulator, the flash-attention, SSD scan and
-RG-LRU scan kernels and the served LMs.
+RG-LRU scan kernels (the ring kernel bit for bit against the direct one)
+and the served LMs.
 
 The file imports neither jax nor the reference package, so it runs on the
 machine with the card, where JAX is not installed (`tests/conftest.py`
@@ -426,6 +427,49 @@ def test_rglru_kernel_matches_plain_version(cuda, B, S, R):
     a = torch.full((1, 2048, 128), 0.999, device=cuda)
     b = torch.full((1, 2048, 128), 0.01, device=cuda)
     assert _rel(rglru_ops.rglru_scan(a, b), rglru_scan_ref(a, b)) < 1e-5
+
+
+# (B, S, R, a and b as constants or None, the base offset in elements): the
+# cases of chip_smoke.py phase 8 — the reference's sweep, the long decay, R
+# not a multiple of 32, S not a multiple of the ring's 16-step stage, B 1
+# and 4, a base off 16 bytes (the 4-byte copies) and the served shape
+RGLRU_CASES = [(1, 128, 128, None, 0), (2, 300, 192, None, 0),
+               (2, 64, 512, None, 0), (1, 2048, 128, (0.999, 0.01), 0),
+               (4, 1, 37, None, 0), (1, 37, 100, None, 0),
+               (4, 300, 37, None, 0), (1, 300, 100, None, 0),
+               (4, 37, 2560, None, 0), (2, 64, 512, None, 1),
+               (4, 4096, 2560, None, 0)]
+
+
+@pytest.mark.parametrize("B,S,R,const,offset", RGLRU_CASES)
+def test_rglru_ring_kernel_equals_direct_kernel(cuda, B, S, R, const,
+                                                offset):
+    """The rule's ring kernel bit for bit against the direct kernel on the
+    same inputs (one fmaf a step from zero in both), within 1e-5 of the
+    plain version, each launch counted on its own kernel."""
+    g = torch.Generator(device=cuda).manual_seed(B + S + R)
+    n = B * S * R
+    if const is None:
+        a = torch.sigmoid(torch.randn(n + offset, generator=g, device=cuda)) \
+            * 0.2 + 0.79
+        b = torch.randn(n + offset, generator=g, device=cuda) * 0.1
+    else:
+        a = torch.full((n + offset,), const[0], device=cuda)
+        b = torch.full((n + offset,), const[1], device=cuda)
+    a, b = (x[offset:].view(B, S, R) for x in (a, b))
+    assert a.data_ptr() % 16 == 4 * offset
+    before = dict(rglru_ops.rglru_scan.launches_by_kernel)
+    got = rglru_ops.rglru_scan(a, b)
+    torch.cuda.synchronize()
+    after = dict(rglru_ops.rglru_scan.launches_by_kernel)
+    assert after == dict(before, ring=before["ring"] + 1)
+    want = rglru_ops.rglru_scan(a, b, kernel="direct")
+    torch.cuda.synchronize()
+    assert rglru_ops.rglru_scan.launches_by_kernel == dict(
+        after, direct=after["direct"] + 1)
+    assert torch.equal(got, want)
+    assert bool(torch.isfinite(got).all())
+    assert _rel(got, rglru_scan_ref(a, b)) < 1e-5
 
 
 @pytest.mark.parametrize("arch", ["llama3.2-3b", "mamba2-780m",

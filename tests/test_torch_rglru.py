@@ -5,7 +5,12 @@ its Pallas kernel `rg_ops.rglru_scan` in interpret mode, on the shapes of
 long decay), with the same inputs made by numpy; and the model's plain
 log-depth scan `models.rglru._lru_scan` against the reference's
 associative scan.  Tolerance 1e-5 relative, the reference's bar (fp32
-throughout; the scans sum in other orders)."""
+throughout; the scans sum in other orders).  Also the CUDA kernels' rule
+and `kernel=` as a CPU call sees them, and the edits that
+``tools/rglru_phases.py`` makes to the ring kernel's source."""
+import importlib.util
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -105,3 +110,68 @@ def test_rglru_scan_rejects_what_it_does_not_take():
         pt_ops.rglru_scan(a.to("meta"), b.to("meta"))
     with pytest.raises(ValueError, match="meta"):
         pt_ops.rglru_scan(a.to("meta"), b)
+
+
+def test_rglru_kernel_rule_is_the_ring():
+    """Every fp32 CUDA call runs the ring kernel: no size threshold, no
+    knob; the direct kernel runs only when a call names it."""
+    assert pt_ops.kernel_for() == "ring"
+    assert pt_ops.KERNELS == ("ring", "direct")
+    assert set(pt_ops.rglru_scan.launches_by_kernel) == set(pt_ops.KERNELS)
+    assert [p.name for p in pt_ops.SOURCES] == ["rglru.cu", "rglru_ring.cu"]
+
+
+@pytest.mark.parametrize("device", ["cpu", "meta"])
+def test_rglru_scan_refuses_an_unknown_kernel(device):
+    a, b = (torch.from_numpy(x).to(device) for x in _inputs(0, 1, 8, 16))
+    with pytest.raises(ValueError, match="kernel must be one of"):
+        pt_ops.rglru_scan(a, b, kernel="chunked")
+
+
+@pytest.mark.parametrize("kernel", [None, "ring", "direct"])
+def test_rglru_scan_cpu_call_checks_kernel_and_launches_nothing(kernel):
+    """A CPU call takes `kernel=` as a CUDA call does, then runs the plain
+    version: the same result whichever kernel it names, and no launch."""
+    a, b = (torch.from_numpy(x) for x in _inputs(5, 2, 37, 100))
+    before = pt_ops.rglru_scan.launches
+    by_kernel = dict(pt_ops.rglru_scan.launches_by_kernel)
+    got = pt_ops.rglru_scan(a, b, kernel=kernel)
+    assert pt_ops.rglru_scan.launches == before
+    assert pt_ops.rglru_scan.launches_by_kernel == by_kernel
+    assert torch.equal(got, pt_ref.rglru_scan_ref(a, b))
+
+
+def _load_tool(name):
+    path = Path(__file__).resolve().parents[1] / "tools" / f"{name}.py"
+    spec = importlib.util.spec_from_file_location(name, path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+_PHASES = _load_tool("rglru_phases")
+
+
+@pytest.mark.parametrize("T,K,copies", [(32, 2, True), (64, 8, True),
+                                        (16, 4, False)])
+def test_rglru_phases_edits_match_kernel_source(T, K, copies):
+    """``tools/rglru_phases.py`` sets the ring kernel's stage length and
+    depth and takes out its copies by the exact text of its source: each
+    edited text is there once, and the variant holds the new values."""
+    source = pt_ops.SOURCES[1].read_text()
+    assert (_PHASES.knob(source, "T"), _PHASES.knob(source, "K")) == (16, 4)
+    out = _PHASES.variant(source, T, K, copies)
+    assert (_PHASES.knob(out, "T"), _PHASES.knob(out, "K")) == (T, K)
+    assert source.count(_PHASES.COPIES) == 1
+    assert (_PHASES.NO_COPIES in out) == (not copies)
+    assert out.count("cp_async16(sa") == source.count("cp_async16(sa") == 1
+
+
+def test_rglru_phases_bytes_in_flight():
+    """At the served shape and the source's T 16, K 4: 320 blocks, all
+    resident (3 an SM at most), 3 stages of 4 KB in flight a block; at T
+    64, K 8 (128 KB a block) one block an SM."""
+    resident, flight = _PHASES.in_flight(16, 4, 4, 2560)
+    assert resident == 3
+    assert flight == pytest.approx(3 * 4096 * 320 / 132, rel=1e-12)
+    assert _PHASES.in_flight(64, 8, 4, 2560) == (1, 7 * 16384)
