@@ -26,22 +26,36 @@ Phases (any failure ends the run with a nonzero exit):
      4's fused and compact runs, (c) timing at both steps' shapes;
 4. the main path on the paper's radix-16 evaluation network (g = 41:
    1,312 chips, 30,176 channels), 2 rates x 2 seeds = 4 lanes through
-   `Simulator.sweep_grid`, once per cycle step:
+   `Simulator.sweep_grid`, its cycles replayed as captured CUDA graphs,
+   once per cycle step:
    - the oracle (`step_impl="jnp"`) at offered 0.1 and 0.4, with accepted
      = offered load at 0.1;
    - the fused and the compact step at offered 0.4 and 1.0 (Fig. 11's
      uniform-traffic loads), equal to each other on every lane and to the
      oracle on the 0.4 lanes;
-   each with its kernel launch counts (every one on the kernel that
-   `kernel_for` names for the step's priority: the coop kernel for the
-   oracle and fused steps, the three-pass kernel for the compact step's
-   explicit priority)
-   and exact packet conservation on every lane;
+   each with its kernel launch counts as the kernels count them on the
+   card (one a cycle of every run plus the warm-up superstep of each
+   capture, every one on the kernel that `kernel_for` names for the
+   step's priority: the coop kernel for the oracle and fused steps, the
+   three-pass kernel for the compact step's explicit priority; the
+   wrappers' host counts tick only at each capture's warm-up and
+   recording), exact packet conservation on every lane, and the memory
+   the process holds with the three steps' graphs cached;
 5. the port on the card against the port on the CPU on a small network,
    field for field, for all three steps across routing modes, cold and
    warm faults and the reaper, plus a compact run pinned below its live
    peak, which must escalate;
-6. the flash-attention kernels against their plain version on the card,
+6. the cycle loop as captured CUDA graphs (the default on the card, and
+   phase 4's loop) against the eager loop, field for field, for all three
+   steps: on the small network at K = 4 with a warm onset (cycle 61) and
+   the warmup reset (62) inside a superstep, cold faults and the reaper;
+   on the paper network (4 lanes, 300 cycles) at K = 1 and 4, with a
+   second sweep that must capture nothing, and cycles/s eager and replayed,
+   capture seconds and peak memory; the lockstep and sequential lane forms
+   timed (equal counters) beside the planner's pick; and
+   `assert_deadlock_free` on the card equal to the CPU on the radix-16
+   network with 7 W-groups;
+7. the flash-attention kernels against their plain version on the card,
    each case on the kernel the (dtype, head_dim) rule names (bf16 at hd
    64, 128 and 256 on the tensor-core kernel, the rest on the FMA
    kernel): the shapes of the reference's kernel tests in fp32 and bf16,
@@ -56,7 +70,7 @@ Phases (any failure ends the run with a nonzero exit):
    prefill's local attention (B = 4, S = 4096, H = 10, KV = 1, hd = 256,
    window 2048, bf16) is checked and timed the same way, beside SDPA with
    the window as a mask;
-7. the SSD scan kernels against their plain version `ssd_ref` on the
+8. the SSD scan kernels against their plain version `ssd_ref` on the
    card, each case on the kernel the (dtype, P, N) rule names (bf16 on the
    tensor-core kernel, fp32 on the FMA kernel): the shapes of the
    reference's kernel tests (property sweep and chunk invariance) in fp32,
@@ -67,7 +81,7 @@ Phases (any failure ends the run with a nonzero exit):
    held to 1e-4 in fp32, y to 2e-2 per output row and the state to 1e-4
    in bf16; the bf16 serving shape is timed beside the FMA kernel on the
    same inputs;
-8. the RG-LRU scan kernels on the card, each case on the ring kernel that
+9. the RG-LRU scan kernels on the card, each case on the ring kernel that
    the rule names, held bit for bit to the direct kernel on the same
    inputs and at 1e-5 to `rglru_scan_ref`: the shapes of the reference's
    kernel tests (with S = 2048 at a = 0.999), R off the ring's 32 channels
@@ -75,7 +89,7 @@ Phases (any failure ends the run with a nonzero exit):
    16 bytes, and the recurrentgemma-2b prefill's (B = 4, S = 4096,
    R = 2560); the serving shape is timed, the ring kernel beside the
    direct one;
-9. the LM serving path at full width, each model in bf16 with seeded
+10. the LM serving path at full width, each model in bf16 with seeded
    random weights, `generate` with batch 4 and 16 new tokens, prefill on
    the kernels, timed over 5 samples (median and range of prefill ms and
    decode ms/token): `llama3.2-3b` (prompt 2048; one flash_attention launch
@@ -89,7 +103,7 @@ Phases (any failure ends the run with a nonzero exit):
    and that token: 2e-2 in bf16 (with SSM layers, or twice the naive
    forward's own move under a halved SSD chunk if larger), and for the
    two recurrent models also in fp32 at 1e-3;
-10. the served smoke models in fp32 on the card against the CPU: equal
+11. the served smoke models in fp32 on the card against the CPU: equal
    greedy tokens, prefill logits within 1e-4.
 
 Then one JSON line of kernel numbers, the card's name and power limit, and
@@ -155,6 +169,23 @@ def cuda_ms(fn, reps):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def graph_ms(fn, calls=20, reps=20):
+    """Time per call of `calls` back-to-back calls of `fn` captured in one
+    CUDA graph (after a warm-up call on the capture stream) and replayed
+    `reps` times: what a call costs inside the main path's graphs."""
+    import torch
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        fn()
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        for _ in range(calls):
+            fn()
+    return cuda_ms(graph.replay, reps) / calls
 
 
 def phase_build():
@@ -364,17 +395,20 @@ def phase_grant_timing(args, buf_pkts):
     from repro_torch.kernels.netsim import grant, grant_ref
     B = args[0].shape[0]
     ms = cuda_ms(lambda: grant(*args, buf_pkts=buf_pkts, kernel="coop"), 200)
+    replayed_ms = graph_ms(lambda: grant(*args, buf_pkts=buf_pkts,
+                                         kernel="coop"))
     three_ms = cuda_ms(lambda: grant(*args, buf_pkts=buf_pkts,
                                      kernel="three_pass"), 200)
     plain_ms = cuda_ms(lambda: grant_ref(*args, buf_pkts=buf_pkts), 50)
     nbytes = grant_bytes(args)
     bound_ms = nbytes / H100_BYTES_PER_S * 1e3
-    print(f"[grant] full width B={B}: coop kernel {ms * 1e3:.2f} us/launch, "
-          f"three-pass "
+    print(f"[grant] full width B={B}: coop kernel {ms * 1e3:.2f} us/launch "
+          f"called eagerly ({replayed_ms * 1e3:.2f} us replayed in a CUDA "
+          f"graph), three-pass "
           f"{three_ms * 1e3:.2f} us, plain {plain_ms * 1e3:.2f} us, bound "
           f"{bound_ms * 1e3:.2f} us ({nbytes} bytes at 3.35 TB/s)")
-    return dict(ms=ms, three_pass_ms=three_ms, plain_ms=plain_ms,
-                bound_ms=bound_ms)
+    return dict(ms=ms, graph_ms=replayed_ms, three_pass_ms=three_ms,
+                plain_ms=plain_ms, bound_ms=bound_ms)
 
 
 def _cycle_err(got, want):
@@ -526,39 +560,52 @@ def phase_cycle_core_timing(impl, args, kw):
     kernel = ops.kernel_for(explicit)
     t = {f"{k}_ms": cuda_ms(lambda: cycle_core(*args, **kw, kernel=k), 200)
          for k in ops.KERNELS if not (explicit and k == "coop")}
+    replayed_ms = graph_ms(lambda: cycle_core(*args, **kw, kernel=kernel))
     plain_ms = cuda_ms(lambda: cycle_core_ref(*args, **kw), 50)
     nbytes = cycle_core_bytes(args, kw)
     bound_ms = nbytes / H100_BYTES_PER_S * 1e3
     print(f"[cycle_core] {impl} shapes B={B} N={N} E={E}: "
           + ", ".join(f"{k[:-3]} kernel {v * 1e3:.2f} us/launch"
                       for k, v in t.items())
-          + f" (the path runs {kernel}), plain {plain_ms * 1e3:.2f} us, "
-            f"bound {bound_ms * 1e3:.2f} us ({nbytes} bytes at 3.35 TB/s)")
-    return dict(t, ms=t[f"{kernel}_ms"], kernel=kernel, plain_ms=plain_ms,
-                bound_ms=bound_ms)
+          + f" called eagerly; the path runs {kernel}: "
+            f"{replayed_ms * 1e3:.2f} us/launch replayed in a CUDA graph; "
+            f"plain {plain_ms * 1e3:.2f} us, bound {bound_ms * 1e3:.2f} us "
+            f"({nbytes} bytes at 3.35 TB/s)")
+    return dict(t, ms=t[f"{kernel}_ms"], graph_ms=replayed_ms, kernel=kernel,
+                plain_ms=plain_ms, bound_ms=bound_ms)
 
 
 class ConservationProbe:
     """Wraps every step a sweep runs (its own and, for the compact step,
     each escalation rung's) and records each lane's in-flight packets
-    right after the warmup cycle and after the last cycle of the latest
-    run, so measured counters can be held to
-    ``generated == delivered + dropped + reaped + in-flight``."""
+    after every cycle of the latest run, so measured counters can be held
+    to ``generated == delivered + dropped + reaped + in-flight`` between
+    the warmup cycle and the last.  The record is a device write at the
+    row of the step's cycle index, with no host synchronisation, so the
+    probed step can be captured in a CUDA graph; the first call (the
+    capture's warm-up, outside the graph) allocates it."""
 
     def __init__(self, sweep, warmup, last):
         self.warmup, self.last = warmup, last
-        self.inflight = {}
+        self.rows = None      # [last + 1, lanes] in-flight after cycle t
         sweep.step = self.wrap(sweep.step)
         make_rung = sweep._compact_step
         sweep._compact_step = lambda C: self.wrap(make_rung(C))
 
     def wrap(self, step):
+        import torch
+
         def probed(state, t_key_rate_fl):
             state, aux = step(state, t_key_rate_fl)
             t = t_key_rate_fl[0]
-            if t in (self.warmup, self.last):
-                self.inflight[t] = (state.b_count.sum((1, 2))
-                                    + state.s_count.sum(1)).cpu()
+            inflight = state.b_count.sum((1, 2)) + state.s_count.sum(1)
+            if self.rows is None:
+                self.rows = torch.zeros((self.last + 1,) + inflight.shape,
+                                        dtype=inflight.dtype,
+                                        device=inflight.device)
+            row = (t.long().view(1) if isinstance(t, torch.Tensor)
+                   else torch.tensor([t], device=inflight.device))
+            self.rows.index_copy_(0, row, inflight[None])
             return state, aux
         for name in ("compact_capacity", "compact_rows"):
             if hasattr(step, name):
@@ -567,6 +614,8 @@ class ConservationProbe:
 
     def check_lanes(self, grid, tag):
         """Exact conservation on every lane of `grid`; prints each lane."""
+        rows = self.rows.cpu()
+        self.inflight = {t: rows[t] for t in (self.warmup, self.last)}
         grown = self.inflight[self.last] - self.inflight[self.warmup]
         for i, r in enumerate(grid.flat()):
             print(f"[{tag}]   offered {r.offered_per_chip:.2f} seed "
@@ -605,27 +654,95 @@ def _reset_launches():
             by_kernel[kernel] = 0
 
 
+def fresh_peak():
+    """Drop the cached CUDA graphs (each holds its static state and memory
+    pool) and reset the peak, so the next peak is one sweep's own (phase
+    6; the main path keeps its graphs, as a figure run does)."""
+    import torch
+    from repro_torch.core.engine.sweep import clear_aot_cache
+    clear_aot_cache()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+
+def expected_calls(grid, cycles):
+    """The arbitration kernels a sweep's step runs on the card: one a
+    cycle of every run (escalation re-runs included) and one a cycle of
+    the one-superstep warm-up before each CUDA graph capture (a capture
+    records, it runs nothing)."""
+    captures = grid.compile_count + grid.escalation_compiles
+    return cycles * (1 + grid.escalations) + grid.superstep * captures
+
+
+def counted(run):
+    """`run()` between the netsim launch counts: the wrappers' host counts
+    set to 0 just before it, the kernels' own device counts read just
+    before and just after it.  Returns (its result, wall seconds, the
+    device launches {wrapper: {kernel: n}}, the host launches alike)."""
+    import torch
+    from repro_torch.kernels.netsim import ops
+    _reset_launches()
+    d0 = ops.device_launches()
+    t0 = time.perf_counter()
+    out = run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    d1 = ops.device_launches()
+    device = {w: {k: d1[w][k] - d0[w][k] for k in d1[w]} for w in d1}
+    host = {w: dict(getattr(ops, w).launches_by_kernel)
+            for w in ops.WRAPPERS}
+    return out, wall, device, host
+
+
+def check_counts(tag, wrapper, kernel, grid, cycles, device, host):
+    """Every arbitration of the sweep ran on `kernel` of `wrapper`, as the
+    kernel counted it on the card: each cycle of each run plus each
+    capture's warm-up (`expected_calls`); nothing on the other wrapper.
+    The wrapper's host count ticked where it launched: at each capture's
+    warm-up and recording, never at a replay."""
+    from repro_torch.kernels.netsim import ops
+    calls = expected_calls(grid, cycles)
+    other = next(w for w in ops.WRAPPERS if w != wrapper)
+    want = {k: calls if k == kernel else 0 for k in ops.KERNELS}
+    check(device[wrapper] == want,
+          f"{tag}: {wrapper} launches on the card {device[wrapper]} != "
+          f"{want} (cycles run + warm-up)")
+    check(not any(device[other].values()) and not any(host[other].values()),
+          f"{tag}: the step launched {other} {device[other]}")
+    captures = grid.compile_count + grid.escalation_compiles
+    rec = {k: 2 * grid.superstep * captures if k == kernel else 0
+           for k in ops.KERNELS}
+    check(host[wrapper] == rec,
+          f"{tag}: {wrapper} host launches {host[wrapper]} != {rec} (a "
+          f"warm-up and a recording of each capture)")
+    return calls
+
+
+def graph_line(grid):
+    return (f"CUDA graphs: K {grid.superstep}, captures "
+            f"{grid.compile_count} (+{grid.escalation_compiles} on "
+            f"abandoned rungs), capture {grid.compile_s:.3f} s, run wall "
+            f"{grid.wall_s:.3f} s")
+
+
 def phase_main_path(net, device):
     """The oracle step at offered 0.1 and 0.4; returns (grant launches,
     the grid)."""
     import torch
     from repro_torch.core import traffic
     from repro_torch.core.simulator import SimConfig, Simulator
-    from repro_torch.kernels.netsim import ops
     cfg = SimConfig(**FULL_CFG)
     cycles = cfg.warmup + cfg.measure
     t0 = time.perf_counter()
     sim = Simulator(net, cfg, traffic.uniform(net), device=device)
     probe = ConservationProbe(sim._batched, cfg.warmup, cycles - 1)
     setup_s = time.perf_counter() - t0
+    # the peak from here to the end of the three steps, each step's graph
+    # kept in the cache as a figure run keeps it
     torch.cuda.reset_peak_memory_stats()
-    _reset_launches()
-    t0 = time.perf_counter()
-    grid = sim.sweep_grid(list(FULL_RATES), seeds=FULL_SEEDS)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches, other = ops.grant.launches, ops.cycle_core.launches
-    by_kernel = dict(ops.grant.launches_by_kernel)
+    base = torch.cuda.memory_allocated()
+    grid, wall, device, host = counted(
+        lambda: sim.sweep_grid(list(FULL_RATES), seeds=FULL_SEEDS))
     lanes = len(FULL_RATES) * len(FULL_SEEDS)
     print(f"[main] radix-16 g=41: {net.num_chips} chips, "
           f"{net.num_channels} channels, {lanes} lanes x {cycles} cycles "
@@ -635,18 +752,19 @@ def phase_main_path(net, device):
         if r.offered_per_chip == 0.1:
             check(abs(r.throughput_per_chip - 0.1) <= 0.005,
                   f"accepted {r.throughput_per_chip} != offered 0.1")
-    check(launches == cycles,
-          f"grant launches {launches} != cycles run {cycles}")
-    check(other == 0, f"the oracle step launched cycle_core {other} times")
-    check(by_kernel == {"coop": cycles, "three_pass": 0},
-          f"grant launches by kernel {by_kernel}: not all on the coop "
-          f"kernel")
+    launches = check_counts("main", "grant", "coop", grid, cycles, device,
+                            host)
     print(f"[main] wall {wall:.3f} s: {cycles / wall:.2f} cycles/s, "
-          f"{lanes * cycles / wall:.2f} lane-cycles/s; grant launches "
-          f"{launches} {by_kernel}; max_memory_allocated "
-          f"{torch.cuda.max_memory_allocated()} bytes")
-    return dict(launches=launches, launches_by_kernel=by_kernel,
-                cycles_per_s=cycles / wall), grid
+          f"{lanes * cycles / wall:.2f} lane-cycles/s; {graph_line(grid)}; "
+          f"grant launches on the card {device['grant']}, from the host "
+          f"{host['grant']}; max_memory_allocated "
+          f"{torch.cuda.max_memory_allocated()} bytes (before the step "
+          f"{base})")
+    return dict(launches=launches, launches_by_kernel=device["grant"],
+                host_launches_by_kernel=host["grant"],
+                cycles_per_s=cycles / wall,
+                run_cycles_per_s=cycles / grid.wall_s,
+                memory_before=base), grid
 
 
 def phase_fast_path(net, device, impl, kernel):
@@ -655,21 +773,14 @@ def phase_fast_path(net, device, impl, kernel):
     import torch
     from repro_torch.core import traffic
     from repro_torch.core.simulator import Simulator
-    from repro_torch.kernels.netsim import ops
     cfg = fast_cfg(impl)
     cycles = cfg.warmup + cfg.measure
     t0 = time.perf_counter()
     sim = Simulator(net, cfg, traffic.uniform(net), device=device)
     probe = ConservationProbe(sim._batched, cfg.warmup, cycles - 1)
     setup_s = time.perf_counter() - t0
-    torch.cuda.reset_peak_memory_stats()
-    _reset_launches()
-    t0 = time.perf_counter()
-    grid = sim.sweep_grid(list(FAST_RATES), seeds=FULL_SEEDS)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches, other = ops.cycle_core.launches, ops.grant.launches
-    by_kernel = dict(ops.cycle_core.launches_by_kernel)
+    grid, wall, device, host = counted(
+        lambda: sim.sweep_grid(list(FAST_RATES), seeds=FULL_SEEDS))
     lanes = len(FAST_RATES) * len(FULL_SEEDS)
     runs = 1 + grid.escalations
     print(f"[{impl}] radix-16 g=41: {lanes} lanes x {cycles} cycles "
@@ -678,20 +789,37 @@ def phase_fast_path(net, device, impl, kernel):
           f"occupancy_peak {grid.occupancy_peak}, escalations "
           f"{grid.escalations}")
     probe.check_lanes(grid, impl)
-    check(launches == cycles * runs,
-          f"{impl}: cycle_core launches {launches} != cycles x runs "
-          f"{cycles} x {runs}")
-    check(other == 0, f"the {impl} step launched grant {other} times")
-    check(by_kernel[kernel] == launches,
-          f"{impl}: cycle_core launches by kernel {by_kernel}: not all on "
-          f"the {kernel} kernel")
+    launches = check_counts(impl, "cycle_core", kernel, grid, cycles,
+                            device, host)
     print(f"[{impl}] wall {wall:.3f} s ({runs} run(s)): "
           f"{cycles * runs / wall:.2f} cycles/s, "
-          f"{lanes * cycles * runs / wall:.2f} lane-cycles/s; cycle_core "
-          f"launches {launches} {by_kernel}; max_memory_allocated "
+          f"{lanes * cycles * runs / wall:.2f} lane-cycles/s; "
+          f"{graph_line(grid)}; cycle_core launches on the card "
+          f"{device['cycle_core']}, from the host {host['cycle_core']}; "
+          f"max_memory_allocated since the main path began "
           f"{torch.cuda.max_memory_allocated()} bytes")
-    return dict(launches=launches, launches_by_kernel=by_kernel,
-                cycles_per_s=cycles * runs / wall), grid
+    return dict(launches=launches, launches_by_kernel=device["cycle_core"],
+                host_launches_by_kernel=host["cycle_core"],
+                cycles_per_s=cycles * runs / wall,
+                run_cycles_per_s=cycles * runs / grid.wall_s), grid
+
+
+def main_path_memory(before):
+    """What the process holds after the three main-path steps ran, each
+    step's graph left in the cache: memory allocated and reserved now, and
+    the peak since the main path began."""
+    import torch
+    from repro_torch.core.engine import graphs
+    held = dict(graphs_cached=len(graphs._GRAPHS), before=before,
+                memory_allocated=torch.cuda.memory_allocated(),
+                max_memory_allocated=torch.cuda.max_memory_allocated(),
+                memory_reserved=torch.cuda.memory_reserved())
+    print(f"[main] the three steps in one process, {held['graphs_cached']} "
+          f"graphs cached: memory_allocated {held['memory_allocated']}, "
+          f"max_memory_allocated {held['max_memory_allocated']}, "
+          f"memory_reserved {held['memory_reserved']} bytes (allocated "
+          f"before the main path {before})")
+    return held
 
 
 def check_fast_grids(oracle, grids):
@@ -743,6 +871,41 @@ def phase_profile(net, device, impl, per_call, cycles=20):
     check(n == cycles * per_call, f"{impl}: {n} grant / cycle_core kernels "
                                   f"in {cycles} calls, not {per_call} a "
                                   f"call")
+
+
+def phase_profile_graph(net, device, impl, K, cycles=40):
+    """torch.profiler over `cycles` cycles of one main-path step replayed
+    as captured CUDA graphs of K cycles (offered 0.4 on every lane, from
+    a state warmed by 100 eager cycles)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch import random as jr
+    from repro_torch.core import traffic
+    from repro_torch.core.engine import (build_lane, graphs, make_state,
+                                         make_step)
+    from repro_torch.core.engine.step import _key_chain, run_scan
+    from repro_torch.core.routing import share_lanes
+    cfg = fast_cfg(impl)
+    step, consts = make_step(net, cfg, traffic.uniform(net), device=device)
+    B = len(FULL_RATES) * len(FULL_SEEDS)
+    fl = share_lanes(build_lane(net, cfg, None, device=device), B)
+    state = make_state(net, cfg, consts["NV"], batch=(B,), device=device)
+    keys = torch.stack([jr.PRNGKey(s) for s in range(B)]).to(device)
+    rates = torch.full((B,), 0.025, dtype=torch.float32, device=device)
+    state = run_scan(step, 100, -1, state, rates, keys, fl)
+    graph, _ = graphs.graph_for(step, K, state, rates, fl)
+    subs = _key_chain(keys, cycles)
+    graph.run(state, rates, fl, -1, subs)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        graph.run(state, rates, fl, -1, subs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    profile_report(prof, wall, f"{impl} CUDA graph K = {K}, {cycles} "
+                   f"cycles", cycles, "cycle", ("grant", "cycle_"))
+    graphs.clear()
 
 
 def profile_report(prof, wall, label, n, unit, names):
@@ -849,6 +1012,162 @@ def phase_small_parity(device):
           f"peak {runs[0].occupancy_peak}), CUDA == CPU")
 
 
+# phase 6's small-network runs: a K = 4 superstep holds the warm onset
+# (cycle 61) and the warmup reset (62); the paper network's comparison
+# runs 300 cycles
+GRAPH_SMALL = dict(warmup=62, measure=118)
+GRAPH_PAPER = dict(warmup=100, measure=200)
+GRAPH_K = (1, 4)
+
+
+class superstep_env:
+    """REPRO_SUPERSTEP set to `k` inside the block, restored after it."""
+
+    def __init__(self, k):
+        self.k = k
+
+    def __enter__(self):
+        import os
+        self.old = os.environ.get("REPRO_SUPERSTEP")
+        os.environ["REPRO_SUPERSTEP"] = str(self.k)
+
+    def __exit__(self, *exc):
+        import os
+        if self.old is None:
+            os.environ.pop("REPRO_SUPERSTEP", None)
+        else:
+            os.environ["REPRO_SUPERSTEP"] = self.old
+
+
+def _grid_rows(grid):
+    return [dataclasses.asdict(r) for r in grid.flat()]
+
+
+def phase_graphs(net, device):
+    """The captured CUDA graphs against the eager loop, bit for bit: on
+    the small network with a warm onset and the warmup reset inside a
+    K = 4 superstep, then on the paper network (4 lanes) at K = 1 and 4,
+    each step timed both ways; the lane forms timed at the paper's scale;
+    the deadlock proof on the card against the CPU.  Returns the paper
+    network's numbers per step."""
+    import torch
+    from repro_torch.core import topology as T
+    from repro_torch.core import traffic
+    from repro_torch.core.engine import make_state
+    from repro_torch.core.engine import sweep as SW
+    from repro_torch.core.simulator import SimConfig, Simulator
+    small = T.build_switchless(T.SwitchlessParams(**SMALL), "small")
+    glob = np.where(small.ch_type == T.GLOBAL)[0]
+    cold = T.FaultSet(dead_ch=tuple(int(c) for c in glob[:2]))
+    rows = [T.FaultSet(), cold,
+            T.FaultSchedule(((0, T.FaultSet()), (61, cold)))]
+    for impl in ("jnp",) + FAST_STEPS:
+        cfg = SimConfig(**GRAPH_SMALL, vc_mode="updown", reap_age=20,
+                        step_impl=impl)
+        eager = Simulator(small, cfg, traffic.uniform(small), device=device,
+                          loop="eager").sweep_faults(1.2, rows, (0, 1))
+        with superstep_env(4):
+            got = Simulator(small, cfg, traffic.uniform(small),
+                            device=device).sweep_faults(1.2, rows, (0, 1))
+        check(got.superstep == 4 and got.compile_count >= 1,
+              f"small-net {impl}: K {got.superstep}, captures "
+              f"{got.compile_count}")
+        check(_grid_rows(got) == _grid_rows(eager),
+              f"small-net {impl}: captured K = 4 != eager")
+        print(f"[graphs] small net {impl}: captured K = 4 == eager on "
+              f"{len(rows) * 2} lanes (pristine, cold, warm onset 61, "
+              f"reset at 62, reaper on)")
+    out = {}
+    for impl, rates in (("jnp", FULL_RATES),) + tuple(
+            (i, FAST_RATES) for i in FAST_STEPS):
+        cfg = SimConfig(**GRAPH_PAPER, step_impl=impl)
+        cycles = cfg.warmup + cfg.measure
+        sim = Simulator(net, cfg, traffic.uniform(net), device=device,
+                        loop="eager")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eager = sim.sweep_grid(list(rates), seeds=FULL_SEEDS)
+        torch.cuda.synchronize()
+        runs = 1 + eager.escalations
+        res = dict(eager_cycles_per_s=cycles * runs
+                   / (time.perf_counter() - t0))
+        for K in GRAPH_K:
+            with superstep_env(K):
+                sim = Simulator(net, cfg, traffic.uniform(net),
+                                device=device)
+                fresh_peak()
+                first = sim.sweep_grid(list(rates), seeds=FULL_SEEDS)
+                peak = torch.cuda.max_memory_allocated()
+                before = SW.compile_counter()
+                again = sim.sweep_grid(list(rates), seeds=FULL_SEEDS)
+            check(SW.compile_counter() == before and again.compile_count == 0,
+                  f"{impl} K {K}: the second sweep captured")
+            for g in (first, again):
+                check(g.superstep == K and _grid_rows(g) == _grid_rows(eager),
+                      f"paper net {impl} K {K}: captured != eager")
+            res[f"K{K}"] = dict(
+                cycles_per_s=cycles * (1 + again.escalations) / again.wall_s,
+                capture_s=first.compile_s,
+                captures=first.compile_count + first.escalation_compiles,
+                max_memory_allocated=peak)
+        out[impl] = res
+        print(f"[graphs] paper net {impl}: {len(rates) * len(FULL_SEEDS)} "
+              f"lanes x {cycles} cycles, captured == eager at K = "
+              f"{GRAPH_K}; cycles/s eager {res['eager_cycles_per_s']:.2f}, "
+              + ", ".join(
+                  f"graph K = {K} {res[f'K{K}']['cycles_per_s']:.2f} "
+                  f"(capture {res[f'K{K}']['capture_s']:.3f} s, "
+                  f"{res[f'K{K}']['captures']} capture(s), "
+                  f"max_memory_allocated "
+                  f"{res[f'K{K}']['max_memory_allocated']} bytes)"
+                  for K in GRAPH_K))
+    for impl, rates in (("jnp", FULL_RATES),) + tuple(
+            (i, FAST_RATES) for i in FAST_STEPS):
+        cfg = SimConfig(**GRAPH_PAPER, step_impl=impl)
+        cycles = cfg.warmup + cfg.measure
+        sw = Simulator(net, cfg, traffic.uniform(net), device=device)._batched
+        _, rt, keys, fl, _ = sw._prepare_lanes(
+            [(r, s, None) for r in rates for s in FULL_SEEDS])
+        keys = keys.to(device)
+        lane_cps, stats = {}, {}
+        for form, scan in (("lockstep", SW._scan_lanes),
+                           ("sequential", SW._scan_lanes_seq)):
+            args = lambda: (make_state(net, cfg, sw.NV, batch=(len(rt),),
+                                       device=device), rt, keys, fl)
+            scan(sw.step, cycles, cfg.warmup, 1, "graph", *args())
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            stats[form] = scan(sw.step, cycles, cfg.warmup, 1, "graph",
+                               *args())[0]
+            torch.cuda.synchronize()
+            lane_cps[form] = len(rt) * cycles / (time.perf_counter() - t0)
+        check(all(torch.equal(v, getattr(stats["sequential"], k))
+                  for k, v in vars(stats["lockstep"]).items()),
+              f"{impl}: sequential lanes != lockstep")
+        pick = SW.lane_form(sw.step, device)
+        out[impl]["lane_cycles_per_s"] = lane_cps
+        out[impl]["lane_form"] = pick
+        print(f"[graphs] lane form {impl}: lockstep "
+              f"{lane_cps['lockstep']:.2f} lane-cycles/s, sequential "
+              f"{lane_cps['sequential']:.2f} (equal counters); the planner "
+              f"picks {pick}; faster in this run: "
+              f"{max(lane_cps, key=lane_cps.get)}")
+    SW.clear_aot_cache()
+    torch.cuda.empty_cache()
+    from repro_torch.core.routing import assert_deadlock_free
+    net7 = T.build_switchless(T.paper_radix16_switchless(g=7))
+    for mode in ("baseline", "updown", "updown_merged"):
+        edges = [assert_deadlock_free(net7, mode, True,
+                                      np.random.default_rng(3),
+                                      n_pairs=5000, device=d)
+                 for d in (device, "cpu")]
+        check(edges[0] == edges[1], f"deadlock proof {mode}: card {edges[0]}"
+                                    f" != CPU {edges[1]} CDG edges")
+        print(f"[graphs] assert_deadlock_free radix-16 g=7 {mode} "
+              f"non-minimal: card == CPU, {edges[0]} CDG edges, acyclic")
+    return out
+
+
 # the flash kernel's shapes on the served prefills (B, Sq, Sk, H, KV, hd)
 FA_LLAMA = (SERVE_BATCH, 2048, 2048, 24, 8, 128)
 FA_GEMMA = (SERVE_BATCH, 4096, 4096, 10, 1, 256)
@@ -856,7 +1175,7 @@ FA_GEMMA_WINDOW = 2048
 
 
 def _fa_cases():
-    """(label, shape (B, Sq, Sk, H, KV, hd), dtype, kwargs) of phase 6."""
+    """(label, shape (B, Sq, Sk, H, KV, hd), dtype, kwargs) of phase 7."""
     shapes = [(1, 128, 128, 2, 2, 64), (2, 256, 256, 4, 2, 64),
               (2, 192, 320, 4, 1, 80), (1, 512, 512, 8, 8, 128),
               (1, 64, 64, 10, 1, 256)]
@@ -1022,7 +1341,7 @@ SSD_SERVING = (SERVE_BATCH, 2048, 48, 64, 128)
 
 
 def _ssd_cases():
-    """(label, (B, S, H, P, N), dtype, as views) of phase 7: the property
+    """(label, (B, S, H, P, N), dtype, as views) of phase 8: the property
     sweep's space and the chunk-invariance shape of tests/test_kernels.py,
     the tensor-core kernel's edges in bf16, then the mamba2-780m
     prefill's."""
@@ -1074,7 +1393,7 @@ def phase_ssd_scan(device):
     the kernel the rule names; returns (max abs error, the bf16 serving
     shape's inputs).  fp32: y and the final state within 1e-4 of their
     largest value; bf16: y per output row (one (b, t, h) over P), as phase
-    6 holds attention, and the state within 1e-4."""
+    7 holds attention, and the state within 1e-4."""
     import torch
     from repro_torch.kernels.ssd_scan import ops, ssd_chunk_ref, ssd_ref
     worst, timed = 0.0, None
@@ -1519,6 +1838,7 @@ def main(argv=None):
         cycle_runs[impl], grids[impl] = phase_fast_path(
             net, device, impl, cycle_t[impl]["kernel"])
     check_fast_grids(oracle, grids)
+    held = main_path_memory(grant_run["memory_before"])
     if args.profile:
         kernels = dict(jnp="coop", **{impl: cycle_t[impl]["kernel"]
                                       for impl in FAST_STEPS})
@@ -1527,7 +1847,10 @@ def main(argv=None):
         for impl, kernel in kernels.items():
             phase_profile(net, device, impl,
                           1 if kernel == "coop" else 3)
+            for K in GRAPH_K:
+                phase_profile_graph(net, device, impl, K)
     phase_small_parity(device)
+    graph_t = phase_graphs(net, device)
     fa_err, fa_timed = phase_flash_attention(device)
     fa_t = {label: phase_flash_timing(*fa_timed[label])
             for label in ("serving prefill", "recurrentgemma prefill")}
@@ -1551,7 +1874,12 @@ def main(argv=None):
         max(grant_err, live_err), grant_t)
     grant_entry.update(launches_by_kernel=grant_run["launches_by_kernel"],
                        three_pass_ms=grant_t["three_pass_ms"],
-                       cycles_per_s=grant_run["cycles_per_s"])
+                       cycles_per_s=grant_run["cycles_per_s"],
+                       run_cycles_per_s=grant_run["run_cycles_per_s"],
+                       host_launches_by_kernel=grant_run[
+                           "host_launches_by_kernel"],
+                       graph_ms=grant_t["graph_ms"], main_path_memory=held,
+                       loops=graph_t["jnp"])
     cycle_entry = kernel_entry(
         "netsim.cycle_core",
         "src/repro_torch/kernels/netsim/csrc/cycle_core_coop.cu",
@@ -1563,10 +1891,12 @@ def main(argv=None):
                     for r in cycle_runs.values())
         for kernel in ("coop", "three_pass")}
     cycle_entry["three_pass_ms"] = cycle_t["fused"]["three_pass_ms"]
+    cycle_entry["graph_ms"] = cycle_t["fused"]["graph_ms"]
     cycle_entry["kernel_by_step"] = {impl: cycle_t[impl]["kernel"]
                                      for impl in FAST_STEPS}
     # the fused step's shapes give the headline numbers; both steps' own
-    cycle_entry["by_step"] = {impl: dict(cycle_t[impl], **cycle_runs[impl])
+    cycle_entry["by_step"] = {impl: dict(cycle_t[impl], **cycle_runs[impl],
+                                         loops=graph_t[impl])
                               for impl in FAST_STEPS}
     # llama's prefill gives the flash kernel's headline numbers;
     # recurrentgemma's local layers (hd 256, window 2048) their own

@@ -1,7 +1,9 @@
-"""Core library of the port: topology construction, routing, traffic
-patterns and the lane-batched flit-level simulator (port of `repro.core`;
-the analytical and cost models are not ported yet)."""
-from . import engine, routing, simulator, topology, traffic
+"""Core library of the port: topology construction, the analytical and
+cost models, routing with its deadlock proofs, traffic patterns and the
+lane-batched flit-level simulator (port of `repro.core`; the
+topology-aware collectives are not ported yet)."""
+from . import analytical, cost_model, engine, routing, simulator
+from . import topology, traffic
 from .topology import (CH_TYPE_NAMES, Network, SwitchDragonflyParams,
                        SwitchlessParams, build_switch_dragonfly,
                        build_switchless)
@@ -9,8 +11,9 @@ from .engine import BatchedSweep, SimState, SweepResult
 from .simulator import SimConfig, SimResult, Simulator
 
 __all__ = [
-    "engine", "routing", "simulator", "topology", "traffic",
-    "CH_TYPE_NAMES", "Network", "SwitchDragonflyParams", "SwitchlessParams",
-    "build_switch_dragonfly", "build_switchless", "BatchedSweep",
-    "SimState", "SweepResult", "SimConfig", "SimResult", "Simulator",
+    "analytical", "cost_model", "engine", "routing", "simulator",
+    "topology", "traffic", "CH_TYPE_NAMES", "Network",
+    "SwitchDragonflyParams", "SwitchlessParams", "build_switch_dragonfly",
+    "build_switchless", "BatchedSweep", "SimState", "SweepResult",
+    "SimConfig", "SimResult", "Simulator",
 ]

@@ -10,8 +10,11 @@ with a leading lane dimension:
 
 `step.make_step` wires them into one cycle function (the oracle,
 `step_impl="jnp"`) or returns one of the fused steps of `fused.py`
-("fused", "compact"); `step.run_scan` is the cycle loop;
-`sweep.BatchedSweep` runs a (rate x seed x fault) lane grid through it.
+("fused", "compact"); `step.run_scan` (one cycle a host-int step) and
+`graphs.CycleGraph` (K-cycle supersteps of `step.superstep_body`, the
+cycle index on the device, replayed as a captured CUDA graph on CUDA and
+run eagerly on the CPU) are the cycle loops; `sweep.BatchedSweep` runs
+a (rate x seed x fault) lane grid through them.
 """
 from .state import (SimState, SimStats, build_consts, build_lane,
                     epoch_index, is_scheduled, lane_epoch, make_state,
@@ -24,7 +27,7 @@ from .stats import accumulate, finalize, zero_stats
 from .fused import (capacity_ladder, compact_rows, grant_form,
                     initial_capacity, make_compact_step, make_fused_step,
                     next_rung)
-from .step import make_step, run_scan
+from .step import make_step, run_scan, superstep_body
 from .sweep import BatchedSweep, LaneRun, SweepResult
 
 __all__ = [
@@ -35,5 +38,6 @@ __all__ = [
     "ugal_queue_len", "make_apply_fn", "accumulate", "finalize",
     "zero_stats", "capacity_ladder", "compact_rows", "grant_form",
     "initial_capacity", "make_compact_step", "make_fused_step", "next_rung",
-    "make_step", "run_scan", "BatchedSweep", "LaneRun", "SweepResult",
+    "make_step", "run_scan", "superstep_body",
+    "BatchedSweep", "LaneRun", "SweepResult",
 ]

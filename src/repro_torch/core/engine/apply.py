@@ -25,7 +25,7 @@ def make_apply_fn(net: Network, cfg, consts):
     S, Q = cfg.buf_pkts, cfg.srcq_pkts
 
     def apply_moves(state: SimState, req: Requests, win, won_ch,
-                    t: int, reap=None) -> SimState:
+                    t: int | torch.Tensor, reap=None) -> SimState:
         B = win.shape[0]
         win_buf = win[:, :ER * NV].reshape(B, ER, NV)
         win_src = win[:, ER * NV:]

@@ -47,7 +47,7 @@ class Requests:
 
 
 def gather_requests(state: SimState, consts, route_kernel, fl,
-                    t: int) -> Requests:
+                    t: int | torch.Tensor) -> Requests:
     """Head-of-line packets of every non-eject (channel, VC) buffer + source
     queue, routed through the lane's fault-dependent tables `fl`."""
     NV, T, ER = consts["NV"], consts["T"], consts["E_req"]

@@ -124,7 +124,8 @@ def make_misroute_fn(net: Network, cfg, consts):
 
 
 def make_inject_fn(net: Network, cfg, consts, pattern, inject_mask=None):
-    """Returns inject(state, t, key[B, 2], rate_pkt[B], fl) -> state.
+    """Returns inject(state, t, key[B, 2], rate_pkt[B], fl) -> state;
+    `t` is a host int or a 0-d int32 tensor.
 
     Dead terminals neither inject nor are injected TO.  The source-queue
     records are written in place into `state.s_pkt` (one row per
@@ -152,8 +153,9 @@ def make_inject_fn(net: Network, cfg, consts, pattern, inject_mask=None):
         push = gen & space
         slot = (state.s_head + state.s_count) % Q
         lane = torch.arange(B, device=device)[:, None]
-        new_rec = torch.stack(
-            [dest, torch.full_like(dest, t), mis], dim=-1)
+        itime = (t.to(dest.dtype).expand_as(dest)
+                 if isinstance(t, torch.Tensor) else torch.full_like(dest, t))
+        new_rec = torch.stack([dest, itime, mis], dim=-1)
         # one row per (lane, terminal): the in-place writes never collide
         flat = flat_index(state.s_pkt.shape, (lane, terms, slot),
                           clamp=False)

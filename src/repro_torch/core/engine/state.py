@@ -228,7 +228,7 @@ def is_scheduled(fl: dict) -> bool:
     return "epoch_start" in fl
 
 
-def epoch_index(fl: dict, t: int) -> torch.Tensor:
+def epoch_index(fl: dict, t: int | torch.Tensor) -> torch.Tensor:
     """Per-lane index ``[B]`` of the epoch in effect at cycle `t` for a
     lane-stacked scheduled `fl` (`epoch_start [B, P]`)."""
     return (t >= fl["epoch_start"]).sum(-1) - 1
@@ -241,7 +241,7 @@ def lane_epoch(fl: dict, idx: torch.Tensor) -> dict:
     return {k: v[lane, idx] for k, v in fl.items() if k != "epoch_start"}
 
 
-def resolve_epoch(fl: dict, t: int) -> dict:
+def resolve_epoch(fl: dict, t: int | torch.Tensor) -> dict:
     """The lanes' fault data in effect at cycle `t`: a no-op for flat
     (cold) lanes, a per-lane epoch gather for scheduled ones, so lanes
     carrying different schedules each see their own epoch."""

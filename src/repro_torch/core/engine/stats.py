@@ -23,13 +23,15 @@ def undeliverable_mask(req: Requests, ch_alive):
     return req.valid & ((req.out < 0) | dead_out)
 
 
-def reap_mask(req: Requests, t: int, reap_age: int, ch_alive):
+def reap_mask(req: Requests, t: int | torch.Tensor, reap_age: int,
+              ch_alive):
     """The rows the router-death reaper drops this cycle: undeliverable
     head-of-line requests whose generation age reached the park age."""
     return undeliverable_mask(req, ch_alive) & ((t - req.itime) >= reap_age)
 
 
-def accumulate(stats: SimStats, req: Requests, win, consts, t: int,
+def accumulate(stats: SimStats, req: Requests, win, consts,
+               t: int | torch.Tensor,
                reap=None, ch_alive=None) -> SimStats:
     """Fold this cycle's granted movements into the accumulators (see the
     reference for the `stranded` gauge's two definitions, reaper off/on)."""
@@ -71,6 +73,13 @@ def zero_stats(stats: SimStats) -> SimStats:
     z = SimStats(**{k: torch.zeros_like(v)
                     for k, v in vars(stats).items()})
     return z.replace(occ_peak=stats.occ_peak)
+
+
+def reset_stats_where(stats: SimStats, flag) -> SimStats:
+    """`zero_stats` where the 0-d bool tensor `flag` holds, else `stats`
+    unchanged: the warmup reset decided on the device."""
+    return SimStats(**{k: v if k == "occ_peak" else torch.where(flag, 0, v)
+                       for k, v in vars(stats).items()})
 
 
 def lane_stats(stats: SimStats, i: int) -> SimStats:

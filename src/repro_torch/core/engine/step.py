@@ -6,8 +6,16 @@ Port of `repro.core.engine.step`.  `make_step` returns
 `step(state, (t, key, rate_pkt, fl)) -> (state, None)` over a state with a
 leading lane dimension ``B``: `key` is ``[B, 2]``, `rate_pkt` ``[B]``
 float32, and `fl` the lane-stacked fault data (``[B, ...]``; shared lanes
-are stride-0 views, see `routing.share_lanes`).  `t` is a host int.
-`run_scan` is the cycle loop that replaces the reference's `lax.scan`.
+are stride-0 views, see `routing.share_lanes`).  `t`, the cycle index, is
+a host int or a 0-d int32 tensor on the lanes' device; the step makes no
+host synchronisation either way, so a CUDA graph captured with a tensor
+`t` replays at any starting cycle.
+
+Two cycle loops replace the reference's `lax.scan`: `run_scan`, one step
+a host-int cycle with the warmup reset decided on the host (the parity
+yardstick), and `superstep_body`, K cycles with `t` and the reset on the
+device — the body `engine.graphs.CycleGraph` replays as a CUDA graph (and
+runs eagerly on the CPU).
 """
 from __future__ import annotations
 
@@ -22,7 +30,8 @@ from .fused import make_compact_step, make_fused_step
 from .inject import make_inject_fn
 from .state import (build_consts, resolve_device, resolve_epoch,
                     resolve_reap_age)
-from .stats import accumulate, reap_mask, track_occ, zero_stats
+from .stats import (accumulate, reap_mask, reset_stats_where, track_occ,
+                    zero_stats)
 
 # the valid `cfg.step_impl` values (SimConfig validates against this):
 # "jnp" is the phase pipeline below (the oracle), "fused" the per-channel
@@ -100,3 +109,23 @@ def run_scan(step, cycles: int, reset_at: int, state0, rate_pkt, key, fl):
         if t == reset_at:
             state = state.replace(stats=zero_stats(state.stats))
     return state
+
+
+def superstep_body(step, K: int):
+    """K cycles of `step` as one function
+    ``body(state, t0, subs, rate_pkt, fl, reset_at) -> state``: `t0` and
+    `reset_at` are 0-d int32 tensors, `subs` the ``[K, B, 2]`` subkeys.
+    Substep i runs at its own absolute cycle ``t0 + i`` and zeroes the
+    stats on the device when that cycle is `reset_at`, so a warm-fault
+    epoch onset or the end of warmup anywhere inside the superstep gives
+    the counters of K = 1 (the reference's per-substep `cond`)."""
+
+    def body(state, t0, subs, rate_pkt, fl, reset_at):
+        for i in range(K):
+            t = t0 + i if i else t0
+            state, _ = step(state, (t, subs[i], rate_pkt, fl))
+            state = state.replace(
+                stats=reset_stats_where(state.stats, t == reset_at))
+        return state
+
+    return body

@@ -10,12 +10,32 @@ Port of the single-device part of `repro.core.engine.sweep`:
     grid.saturation_throughput() # scalar, seed-averaged
 
 Lane (i, j) reproduces the reference lane bit for bit: its key chain is
-the reference's and the lanes never mix.  The compact step's capacity
-ladder is ported: a run whose live-row census outgrew its rung is re-run
-whole at the next rung (`_PendingLanes.finish`).  The reference's AOT
-executable cache, lane/channel sharding over a device mesh, K-cycle
-supersteps and windowed `LaneSession`s are not ported; `SweepResult`
-keeps their fields with their single-device values.
+the reference's and the lanes never mix.
+
+The cycle loop (`loop=`):
+
+- "graph", the default: K-cycle supersteps through an `engine.graphs`
+  `CycleGraph`.  On CUDA each is a captured CUDA graph, the counterpart
+  of the reference's AOT executable cache: one capture for each (step,
+  K, lane count, lane-data signature, device), `compile_counter()` counts
+  them and `clear_aot_cache()` drops them; `compile_s` holds the warm-up
+  and capture seconds and `wall_s` excludes them.  On the CPU the same
+  supersteps run eagerly;
+- "eager": one step a host-int cycle (`step.run_scan`), the parity
+  yardstick, only when asked for.
+
+K is `superstep(cycles)` (REPRO_SUPERSTEP, falling back to 1 when it does
+not divide the cycles); every substep keeps its own absolute cycle and
+zeroes the stats on the device at the end of warmup, so any K gives the
+counters of K = 1.  `lane_form` picks how the lanes run: in lockstep, or
+one after another outside the cycle loop (the reference's
+`_scan_lanes_seq`), each as a one-lane dispatch of the same loop.
+
+The compact step's capacity ladder is ported: a run whose live-row
+census outgrew its rung is re-run whole at the next rung
+(`_PendingLanes.finish`), which captures anew.  Lane/channel sharding
+over a device mesh and windowed `LaneSession`s are not ported;
+`SweepResult` keeps their fields with their single-device values.
 """
 from __future__ import annotations
 
@@ -26,18 +46,102 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ... import env_int
 from ... import random as jr
 from ..routing import share_lanes
 from ..topology import (FaultSchedule, FaultSet, Network, as_fault_schedule,
                         compose_faults, final_faults)
 from ..traffic import as_pattern
+from . import graphs
 from .fused import grant_form, make_compact_step, next_rung
-from .state import (SimStats, build_lane, make_state, resolve_device,
-                    stack_lanes)
+from .state import (SimState, SimStats, build_lane, make_state,
+                    resolve_device, stack_lanes)
 from .stats import finalize, lane_stats
 # `_key_chain` lives with the cycle loop (`step.run_scan`) that draws it;
 # it is re-exported here, where the reference defines it
 from .step import _key_chain, make_step, run_scan  # noqa: F401
+
+# the cycle loops a dispatch can run (see the module docstring)
+LOOPS = ("graph", "eager")
+
+
+def compile_counter() -> int:
+    """CUDA graphs captured so far in this process (the reference counts
+    its batched-scan compilations)."""
+    return graphs.captures()
+
+
+def clear_aot_cache() -> None:
+    """Drop the captured CUDA graphs and their memory pools."""
+    graphs.clear()
+
+
+def superstep(span: int | None = None) -> int:
+    """K-cycle superstep factor (REPRO_SUPERSTEP, default 1): the loop
+    advances K cycles a superstep, each substep at its own absolute cycle
+    with its own warmup reset and fault epoch, so any K gives the counters
+    of K = 1.  `span` is the cycle count to cover; K falls back to 1 when
+    it does not divide `span`."""
+    k = max(env_int("REPRO_SUPERSTEP", 1), 1)
+    if span is not None and span % k:
+        return 1
+    return k
+
+
+def lane_form(step, device: torch.device) -> str:
+    """The dispatch planner's lane form, "lockstep" (every lane in one
+    loop) or "sequential" (one lane at a time, outside the cycle loop).
+    On the CPU it is the reference's rule: sequential for the compact
+    step on one device.  On CUDA every step runs in lockstep, the form
+    `chip_smoke.py` measured faster at the paper's scale (PERF.md)."""
+    if torch.device(device).type == "cpu" and getattr(
+            step, "compact_capacity", 0):
+        return "sequential"
+    return "lockstep"
+
+
+def _scan_lanes(step, cycles: int, reset_at: int, K: int, loop: str,
+                state0, rate_pkt, keys, lanes):
+    """Advance the B lanes `cycles` cycles in lockstep through `loop`;
+    returns (final counters, captures made, capture seconds)."""
+    if loop == "eager":
+        return (run_scan(step, cycles, reset_at, state0, rate_pkt, keys,
+                         lanes).stats, 0, 0.0)
+    if loop != "graph":
+        raise ValueError(f"unknown loop {loop!r}; valid: {LOOPS}")
+    graph, captured = graphs.graph_for(step, K, state0, rate_pkt, lanes)
+    stats = graph.run(state0, rate_pkt, lanes, reset_at,
+                      _key_chain(keys, cycles))
+    return stats, int(captured), graph.capture_s if captured else 0.0
+
+
+def _lane_args(b: int, state0, rate_pkt, keys, lanes) -> tuple:
+    """Lane b of a dispatch's (state, rates, keys, lane data), each as a
+    one-lane view (a shared lane dict stays stride-0)."""
+    one = lambda x: x[b:b + 1]
+    st = SimState(stats=SimStats(**{k: one(v) for k, v
+                                    in vars(state0.stats).items()}),
+                  **{k: one(v) for k, v in vars(state0).items()
+                     if k != "stats"})
+    return (st, one(rate_pkt), one(keys),
+            {k: one(v) for k, v in lanes.items()})
+
+
+def _scan_lanes_seq(step, cycles: int, reset_at: int, K: int, loop: str,
+                    state0, rate_pkt, keys, lanes):
+    """`_scan_lanes` with the lane axis OUTSIDE the cycle loop: each lane
+    runs the whole loop as a one-lane dispatch (one graph serves every
+    lane of a signature).  Lanes are independent and keep their key
+    chains, so the counters are the lockstep form's bit for bit."""
+    stats, made, capture_s = [], 0, 0.0
+    for b in range(int(rate_pkt.shape[0])):
+        st, m, c = _scan_lanes(step, cycles, reset_at, K, loop,
+                               *_lane_args(b, state0, rate_pkt, keys,
+                                           lanes))
+        stats.append(st)
+        made, capture_s = made + m, capture_s + c
+    return (SimStats(**{k: torch.cat([getattr(st, k) for st in stats])
+                        for k in vars(stats[0])}), made, capture_s)
 
 
 def offered_to_rate_pkt(offered_per_chip: float, cfg,
@@ -57,19 +161,23 @@ class LaneRun(NamedTuple):
     """The outcome of one `run_lanes` dispatch."""
 
     results: list          # one SimResult per lane, in lane order
-    wall_s: float          # execution wall time (device synchronised)
-    compile_s: float       # always 0.0: eager PyTorch compiles nothing
-    compile_count: int     # step functions the grid ran through (1)
+    wall_s: float          # run wall time (device synchronised), captures
+                           # excluded
+    compile_s: float       # warm-up + capture seconds (0.0 on a cache hit,
+                           # on the CPU and on the eager loop)
+    # CUDA graphs this dispatch captured; on the CPU and on the eager loop
+    # 1, the step the grid ran through
+    compile_count: int
     fault_sets: list       # composed per-lane fault states (None=pristine)
     placement: str = "single"
     pad_fraction: float = 0.0
     grant_form: str = "two_pass"   # the reference's form (fused.grant_form)
     occupancy_peak: int = 0     # max live request rows over the lanes
     compact_capacity: int = 0   # compact step's final ladder rung (0=dense)
-    superstep: int = 1
+    superstep: int = 1          # K, the cycles a superstep advances
     escalations: int = 0        # capacity-ladder reruns this run needed
-    # step functions the ABANDONED (breached) runs went through, kept out
-    # of `compile_count`: each ladder rung is its own step
+    # captures (CPU, eager loop: step functions) the ABANDONED runs
+    # cost, kept out of `compile_count`: each ladder rung is its own step
     escalation_compiles: int = 0
 
 
@@ -80,9 +188,9 @@ class SweepResult:
     For fault sweeps (`BatchedSweep.run_faults`) the row axis is the fault
     grid: `rates[i]` repeats the common offered load and `fault_fracs[i]`
     labels row i with its failed-link fraction.  Fields with no meaning
-    in the eager single-device port keep the reference's single-device
-    values (`placement="single"`, `superstep=1`, ...), and
-    `compile_count` counts the step functions the dispatch ran (1).
+    in the single-device port keep the reference's single-device values
+    (`placement="single"`, `pad_fraction=0.0`); `compile_count`,
+    `compile_s` and `escalation_compiles` are as in `LaneRun`.
     `grant_form` is the form the reference's step would compile,
     `compact_capacity` the compact step's final rung (0 for the dense
     steps) and `escalations` the capacity-ladder reruns."""
@@ -143,57 +251,77 @@ class SweepResult:
         return max(r.throughput_per_chip for r in self.mean_over_seeds())
 
 
+class _LanePlan:
+    """A prepared — and on the graph loop captured — lane dispatch that
+    has not run yet (`BatchedSweep.warm_compile`); single-use."""
+
+    def __init__(self, lanes, fault_sets, args, step, K, form, compile_s,
+                 compile_count, grant_form):
+        self.lanes, self.fault_sets = lanes, fault_sets
+        self.args = args          # (state0, rates, keys, lane data)
+        self.step, self.K, self.form = step, K, form
+        self.compile_s, self.compile_count = compile_s, compile_count
+        self.grant_form = grant_form
+        self.capacity = getattr(step, "compact_capacity", 0)
+        self.rows = getattr(step, "compact_rows", 0)
+        self.used = False
+
+
 class _PendingLanes:
     """An issued `run_lanes_async` call: the cycle loop has been issued
     (a CUDA device runs it asynchronously); `finish()` waits for the
     counters, builds the per-lane `SimResult`s, and escalates a compact
     run whose live set outgrew its rung."""
 
-    def __init__(self, sweep, stats, lanes, fault_sets, t0, grant_form,
-                 capacity, rows):
-        self._sweep, self._stats = sweep, stats
-        self._lanes, self._fsets = lanes, fault_sets
-        self._t0 = t0
-        self._grant_form = grant_form
-        self._capacity, self._rows = capacity, rows
+    def __init__(self, sweep, stats, plan, t0, run_capture_s):
+        self._sweep, self._stats, self._plan = sweep, stats, plan
+        self._t0, self._run_capture_s = t0, run_capture_s
 
     def finish(self) -> LaneRun:
         stats = SimStats(**{k: v.cpu() for k, v in vars(self._stats).items()})
-        wall = time.perf_counter() - self._t0
-        sweep, cfg = self._sweep, self._sweep.cfg
+        wall = time.perf_counter() - self._t0 - self._run_capture_s
+        sweep, cfg, plan = self._sweep, self._sweep.cfg, self._plan
         occ = int(stats.occ_peak.max())
-        if self._capacity and occ > self._capacity:
+        if plan.capacity and occ > plan.capacity:
             # capacity breach: every cycle after the crossing arbitrated
             # over a TRUNCATED active set, so nothing of this run is kept.
             # Re-run the whole grid at the next rung; the rerun is
             # deterministic, so its result is the oracle's.  `occ` is
             # exact and the top rung C = N cannot breach.
-            rung = next_rung(self._rows, occ)
+            rung = next_rung(plan.rows, occ)
             sweep._capacity_floor = max(sweep._capacity_floor, rung)
-            redo = sweep.run_lanes_async(self._lanes,
+            redo = sweep.run_lanes_async(plan.lanes,
                                          capacity=rung).finish()
             return redo._replace(
                 wall_s=redo.wall_s + wall,
+                compile_s=redo.compile_s + plan.compile_s,
                 escalations=redo.escalations + 1,
-                escalation_compiles=redo.escalation_compiles + 1)
-        results = [finalize(lane_stats(stats, i), cfg, self._lanes[i][0],
-                            sweep._chips(self._fsets[i]))
-                   for i in range(len(self._lanes))]
-        return LaneRun(results, wall, 0.0, 1, self._fsets,
-                       grant_form=self._grant_form, occupancy_peak=occ,
-                       compact_capacity=self._capacity)
+                escalation_compiles=(redo.escalation_compiles
+                                     + plan.compile_count))
+        results = [finalize(lane_stats(stats, i), cfg, plan.lanes[i][0],
+                            sweep._chips(plan.fault_sets[i]))
+                   for i in range(len(plan.lanes))]
+        return LaneRun(results, wall, plan.compile_s, plan.compile_count,
+                       plan.fault_sets, grant_form=plan.grant_form,
+                       occupancy_peak=occ, compact_capacity=plan.capacity,
+                       superstep=plan.K)
 
 
 class BatchedSweep:
     """Sweep runner over an arbitrary lane grid: one step serves every
     (rate, seed, fault) lane.  `faults` degrades every lane with one fault
-    state; `run_faults` runs a grid of different fault states together."""
+    state; `run_faults` runs a grid of different fault states together.
+    `loop` names the cycle loop (`LOOPS`, default "graph"): the eager one
+    is the parity yardstick and runs only when named."""
 
     def __init__(self, net: Network, cfg, pattern, inject_mask=None,
                  step=None, consts=None, faults: FaultSet | None = None,
-                 lane=None, *, device=None):
+                 lane=None, *, device=None, loop: str | None = None):
         self.net, self.cfg = net, cfg
         self.device = resolve_device(device)
+        self.loop = "graph" if loop is None else loop
+        if self.loop not in LOOPS:
+            raise ValueError(f"unknown loop {self.loop!r}; valid: {LOOPS}")
         pattern = as_pattern(pattern, inject_mask)
         if step is None:
             step, consts = make_step(net, cfg, pattern, device=self.device)
@@ -271,11 +399,12 @@ class BatchedSweep:
             lane_data = stack_lanes([memo[f] for f in fsets])
         return lanes, rates, keys, lane_data, fsets
 
-    def run_lanes_async(self, lanes, capacity=None) -> _PendingLanes:
-        """Issue the lane grid's cycle loop without waiting for its
-        counters.  `capacity` pins the compact step's ladder rung (the
-        escalation rerun re-enters here with the next rung up); without
-        it a sweep that escalated before starts at that rung."""
+    def _plan(self, lanes, capacity=None) -> _LanePlan:
+        """Prepare one dispatch and, on the graph loop, capture its graph
+        (a cache hit captures nothing).  `capacity` pins the compact
+        step's ladder rung (the escalation rerun re-enters here with the
+        next rung up); without it a sweep that escalated before starts at
+        that rung."""
         lanes, rates, keys, lane_data, fsets = self._prepare_lanes(lanes)
         cfg = self.cfg
         impl = getattr(cfg, "step_impl", "jnp")
@@ -287,14 +416,50 @@ class BatchedSweep:
             step = self.step
         gform = (grant_form(self.net, cfg) if impl in ("fused", "compact")
                  else "two_pass")
+        K = 1 if self.loop == "eager" else superstep(cfg.warmup
+                                                     + cfg.measure)
+        form = lane_form(step, self.device)
         state0 = make_state(self.net, cfg, self.NV, batch=(len(lanes),),
                             device=self.device)
+        keys = keys.to(self.device)
+        compile_s, compiles = 0.0, 1
+        if self.loop == "graph" and self.device.type == "cuda":
+            st0, r, _, fl = (
+                (state0, rates, keys, lane_data) if form == "lockstep"
+                else _lane_args(0, state0, rates, keys, lane_data))
+            graph, captured = graphs.graph_for(step, K, st0, r, fl)
+            compile_s = graph.capture_s if captured else 0.0
+            compiles = int(captured)
+        return _LanePlan(lanes, fsets, (state0, rates, keys, lane_data),
+                         step, K, form, compile_s, compiles, gform)
+
+    def warm_compile(self, lanes) -> _LanePlan:
+        """Prepare the lane grid and capture its graph without running it
+        (nothing to capture on the CPU or the eager loop); hand the plan to
+        `run_lanes_async(plan=...)`."""
+        return self._plan(lanes)
+
+    def run_lanes_async(self, lanes=None, capacity=None,
+                        plan: _LanePlan | None = None) -> _PendingLanes:
+        """Issue the lane grid's cycle loop without waiting for its
+        counters (`capacity` as in `_plan`; `plan` runs a `warm_compile`
+        plan instead of preparing anew)."""
+        if plan is None:
+            plan = self._plan(lanes, capacity=capacity)
+        if plan.used:
+            raise ValueError("a lane plan is single-use: warm_compile a "
+                             "fresh one")
+        plan.used = True
+        cfg = self.cfg
+        scan = _scan_lanes if plan.form == "lockstep" else _scan_lanes_seq
         t0 = time.perf_counter()
-        state = run_scan(step, cfg.warmup + cfg.measure, cfg.warmup,
-                         state0, rates, keys.to(self.device), lane_data)
-        return _PendingLanes(self, state.stats, lanes, fsets, t0, gform,
-                             getattr(step, "compact_capacity", 0),
-                             getattr(step, "compact_rows", 0))
+        stats, made, capture_s = scan(plan.step, cfg.warmup + cfg.measure,
+                                      cfg.warmup, plan.K, self.loop,
+                                      *plan.args)
+        plan.args = None
+        plan.compile_count += made
+        plan.compile_s += capture_s
+        return _PendingLanes(self, stats, plan, t0, capture_s)
 
     def run_lanes(self, lanes) -> LaneRun:
         """One batched run over a list of `(offered_per_chip, seed, faults)`
@@ -355,5 +520,6 @@ def _run_fields(run: LaneRun) -> dict:
     return dict(grant_form=run.grant_form,
                 occupancy_peak=run.occupancy_peak,
                 compact_capacity=run.compact_capacity,
+                superstep=run.superstep,
                 escalations=run.escalations,
                 escalation_compiles=run.escalation_compiles)

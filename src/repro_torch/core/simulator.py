@@ -11,6 +11,10 @@ Device rule: a `Simulator` runs on CUDA unless it is given
 On CUDA the arbitration runs the hand-written kernels
 (`repro_torch.kernels.netsim`: `grant` in the oracle step, `cycle_core`
 in the fused and compact steps), on the CPU their plain PyTorch versions.
+Every entry point runs its cycles through the sweep runner's K-cycle
+supersteps (`engine.sweep`): captured CUDA graphs on CUDA, the same code
+eagerly on the CPU; ``loop="eager"`` names the one-step-a-cycle loop that
+both are held to.
 
 Microarchitecture model and routing modes: see the reference module.
 """
@@ -25,9 +29,10 @@ from .routing import share_lanes
 from .topology import FaultSchedule, FaultSet, Network, compose_faults
 from .engine.arbitrate import GRANT_IMPLS
 from .engine.state import build_lane, make_state, resolve_device
-from .engine.step import STEP_IMPLS, make_step, run_scan
+from .engine.step import STEP_IMPLS, make_step
 from .engine.stats import finalize, lane_stats
-from .engine.sweep import BatchedSweep, SweepResult, offered_to_rate_pkt
+from .engine.sweep import (BatchedSweep, SweepResult, _scan_lanes,
+                           offered_to_rate_pkt, superstep)
 
 
 @dataclass(frozen=True)
@@ -102,7 +107,7 @@ class Simulator:
     def __init__(self, net: Network, cfg: SimConfig, pattern,
                  inject_mask=None,
                  faults: FaultSet | FaultSchedule | None = None,
-                 device=None):
+                 device=None, loop: str | None = None):
         from .traffic import as_pattern
         self.device = resolve_device(device)
         self.net, self.cfg = net, cfg
@@ -116,7 +121,8 @@ class Simulator:
         self._batched = BatchedSweep(net, cfg, pattern,
                                      step=self.step, consts=self.consts,
                                      faults=faults, lane=self.lane,
-                                     device=self.device)
+                                     device=self.device, loop=loop)
+        self.loop = self._batched.loop
 
     def run(self, offered_per_chip: float, seed: int | None = None,
             faults: FaultSet | FaultSchedule | None = None) -> SimResult:
@@ -137,11 +143,12 @@ class Simulator:
         key = jr.PRNGKey(cfg.seed if seed is None else seed)[None]
         rate_pkt = torch.tensor([rate], dtype=torch.float32,
                                 device=self.device)
-        state = run_scan(self.step, cfg.warmup + cfg.measure, cfg.warmup,
-                         state0, rate_pkt, key.to(self.device),
-                         share_lanes(lane, 1))
-        return finalize(lane_stats(state.stats, 0), cfg, offered_per_chip,
-                        chips)
+        cycles = cfg.warmup + cfg.measure
+        stats, _, _ = _scan_lanes(self.step, cycles, cfg.warmup,
+                                  superstep(cycles), self.loop, state0,
+                                  rate_pkt, key.to(self.device),
+                                  share_lanes(lane, 1))
+        return finalize(lane_stats(stats, 0), cfg, offered_per_chip, chips)
 
     def sweep(self, rates, seeds=None) -> list[SimResult]:
         """Batched load-latency curve: one (seed-averaged) `SimResult` per

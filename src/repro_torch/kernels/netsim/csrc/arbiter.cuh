@@ -128,7 +128,9 @@ template <class Rows, bool kVec>
 __global__ void __launch_bounds__(kThreads, 1)
     arbiter_one(Rows rows, unsigned long long* __restrict__ scratch,
                 uint8_t* __restrict__ win, uint8_t* __restrict__ won,
-                int32_t* __restrict__ wprio, int B, int N, int E) {
+                int32_t* __restrict__ wprio,
+                unsigned long long* __restrict__ launches, int B, int N,
+                int E) {
   __shared__ unsigned long long s_calls;
   const long long BE = static_cast<long long>(B) * E;
   unsigned long long* ctrl = scratch + 2 * BE;  // [arrivals, calls]
@@ -182,8 +184,12 @@ __global__ void __launch_bounds__(kThreads, 1)
   NETSIM_MARK(1)
   grid_barrier(ctrl, gridDim.x);
   NETSIM_MARK(2)
-  // every block read the call count before it arrived
-  if (blockIdx.x == 0 && threadIdx.x == 0) ctrl[1] = calls + 1;
+  // every block read the call count before it arrived; the launch
+  // counted where it runs, so a graph's replays count too
+  if (blockIdx.x == 0 && threadIdx.x == 0) {
+    ctrl[1] = calls + 1;
+    atomicAdd(launches, 1ULL);
+  }
 
   // -- channels: won (and wprio), and the winning row's win
   for (long long i = g; i < BE; i += threads) {
@@ -224,17 +230,18 @@ int resident_blocks(Fn kernel) {
 }
 
 // One launch on `stream`.  `scratch` is as described at the top, `vec`
-// says that the rows are 16-byte aligned with N % 4 == 0.  Returns the
-// launch's CUDA error.
+// says that the rows are 16-byte aligned with N % 4 == 0; the kernel adds
+// one to `launches` on the device.  Returns the launch's CUDA error.
 template <class Rows>
 int launch_one(const Rows& rows, bool vec, unsigned long long* scratch,
-               uint8_t* win, uint8_t* won, int32_t* wprio, int B, int N,
-               int E, cudaStream_t stream) {
+               uint8_t* win, uint8_t* won, int32_t* wprio,
+               unsigned long long* launches, int B, int N, int E,
+               cudaStream_t stream) {
   auto kernel = vec ? arbiter_one<Rows, true> : arbiter_one<Rows, false>;
   const int blocks = resident_blocks(kernel);
   if (blocks == 0) return static_cast<int>(cudaErrorInvalidConfiguration);
   Rows r = rows;
-  void* args[] = {&r, &scratch, &win, &won, &wprio, &B, &N, &E};
+  void* args[] = {&r, &scratch, &win, &won, &wprio, &launches, &B, &N, &E};
   const cudaError_t err = cudaLaunchCooperativeKernel(
       kernel, dim3(blocks), dim3(kThreads), args, 0, stream);
   return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());

@@ -79,9 +79,12 @@ __global__ void cycle_emit(const int32_t* out, const int32_t* itime,
                            const uint8_t* ok, const int32_t* prio,
                            const uint8_t* ch_ok, long long ch_ok_ls,
                            const unsigned long long* m, uint8_t* win,
-                           uint8_t* won, int32_t* wprio, int N, int E) {
+                           uint8_t* won, int32_t* wprio,
+                           unsigned long long* launches, int N, int E) {
   const int x = blockIdx.x * blockDim.x + threadIdx.x;
   const long long b = blockIdx.y;
+  // the call counted where it runs, so a graph's replays count too
+  if (x == 0 && b == 0) atomicAdd(launches, 1ULL);
   const unsigned long long* mb = m + b * E;
   const uint8_t* cb = ch_ok + b * ch_ok_ls;
   if (x < N) {
@@ -103,13 +106,15 @@ __global__ void cycle_emit(const int32_t* out, const int32_t* itime,
 // Row tensors are [B, N] and channel tensors [B, E], contiguous along the
 // last axis; `ch_ok_ls` is the channel mask's lane stride in elements (0
 // when one mask is shared by every lane).  `prio` is [B, N] or null.  `m` is
-// [B, E] uint64 scratch.  Returns cudaGetLastError() after the launches.
+// [B, E] uint64 scratch.  The emit kernel adds one to `launches` on the
+// device.  Returns cudaGetLastError() after the launches.
 extern "C" int netsim_cycle_core(const int32_t* out, const int32_t* itime,
                                  const uint8_t* ok, const int32_t* prio,
                                  const uint8_t* ch_ok, long long ch_ok_ls,
                                  unsigned long long* m, uint8_t* win,
                                  uint8_t* won, int32_t* wprio, int B, int N,
-                                 int E, void* stream) {
+                                 int E, unsigned long long* launches,
+                                 void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const dim3 block(kThreads);
   const dim3 grid_ch((E + kThreads - 1) / kThreads, B);
@@ -119,6 +124,7 @@ extern "C" int netsim_cycle_core(const int32_t* out, const int32_t* itime,
   cycle_fill<<<grid_ch, block, 0, s>>>(m, E);
   cycle_accumulate<<<grid_row, block, 0, s>>>(out, itime, ok, prio, m, N, E);
   cycle_emit<<<grid_emit, block, 0, s>>>(out, itime, ok, prio, ch_ok,
-                                         ch_ok_ls, m, win, won, wprio, N, E);
+                                         ch_ok_ls, m, win, won, wprio,
+                                         launches, N, E);
   return static_cast<int>(cudaGetLastError());
 }

@@ -95,18 +95,20 @@ cycle_core_rows make_rows(const int32_t* out, const int32_t* itime,
 // last axis; `ch_ok_ls` is the mask's lane stride in elements (0 when one
 // mask is shared by every lane).  The priority is the row index.
 // `scratch` is [2, B, E] uint64 set to ~0, then two uint64 set to 0, kept
-// from call to call (arbiter.cuh).  Returns the launch's CUDA error.
+// from call to call (arbiter.cuh).  The kernel adds one to `launches` on
+// the device.  Returns the launch's CUDA error.
 extern "C" int netsim_cycle_core_coop(const int32_t* out,
                                       const int32_t* itime, const uint8_t* ok,
                                       const uint8_t* ch_ok, long long ch_ok_ls,
                                       unsigned long long* scratch,
                                       uint8_t* win, uint8_t* won,
                                       int32_t* wprio, int B, int N, int E,
+                                      unsigned long long* launches,
                                       void* stream) {
   bool vec = false;
   const cycle_core_rows rows =
       make_rows(out, itime, ok, ch_ok, ch_ok_ls, N, win, &vec);
-  return launch_one(rows, vec, scratch, win, won, wprio, B, N, E,
+  return launch_one(rows, vec, scratch, win, won, wprio, launches, B, N, E,
                     static_cast<cudaStream_t>(stream));
 }
 

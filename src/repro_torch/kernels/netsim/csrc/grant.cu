@@ -86,10 +86,13 @@ __global__ void grant_emit(const int32_t* out, const int32_t* itime,
                            const uint8_t* is_eject, const int32_t* busy,
                            long long busy_ls, const uint8_t* alive,
                            long long alive_ls, const unsigned long long* m,
-                           uint8_t* win, uint8_t* won, int N, int E,
+                           uint8_t* win, uint8_t* won,
+                           unsigned long long* launches, int N, int E,
                            int buf_pkts) {
   const int x = blockIdx.x * blockDim.x + threadIdx.x;
   const long long b = blockIdx.y;
+  // the call counted where it runs, so a graph's replays count too
+  if (x == 0 && b == 0) atomicAdd(launches, 1ULL);
   const unsigned long long* mb = m + b * E;
   if (x < N) {
     const long long i = b * N + x;
@@ -107,14 +110,16 @@ __global__ void grant_emit(const int32_t* out, const int32_t* itime,
 // Row tensors are [B, N] and channel tensors [B, E], contiguous along the
 // last axis; `busy_ls` / `alive_ls` are the channel tensors' lane strides in
 // elements (0 when one mask is shared by every lane).  `m` is [B, E] uint64
-// scratch.  Returns cudaGetLastError() after the three launches.
+// scratch.  The emit kernel adds one to `launches` on the device.  Returns
+// cudaGetLastError() after the three launches.
 extern "C" int netsim_grant(const int32_t* out, const int32_t* itime,
                             const uint8_t* valid, const int32_t* ovc,
                             const uint8_t* is_eject, const int32_t* busy,
                             long long busy_ls, const uint8_t* alive,
                             long long alive_ls, unsigned long long* m,
                             uint8_t* win, uint8_t* won, int B, int N, int E,
-                            int buf_pkts, void* stream) {
+                            int buf_pkts, unsigned long long* launches,
+                            void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const dim3 block(kThreads);
   const dim3 grid_ch((E + kThreads - 1) / kThreads, B);
@@ -127,6 +132,6 @@ extern "C" int netsim_grant(const int32_t* out, const int32_t* itime,
                                               alive_ls, m, N, E, buf_pkts);
   grant_emit<<<grid_emit, block, 0, s>>>(out, itime, valid, ovc, is_eject,
                                          busy, busy_ls, alive, alive_ls, m,
-                                         win, won, N, E, buf_pkts);
+                                         win, won, launches, N, E, buf_pkts);
   return static_cast<int>(cudaGetLastError());
 }

@@ -119,7 +119,8 @@ grant_rows make_rows(const int32_t* out, const int32_t* itime,
 // last axis; `busy_ls` / `alive_ls` are the channel tensors' lane strides in
 // elements (0 when one is shared by every lane).  `scratch` is [2, B, E]
 // uint64 set to ~0, then two uint64 set to 0, kept from call to call
-// (arbiter.cuh).  Returns the launch's CUDA error.
+// (arbiter.cuh).  The kernel adds one to `launches` on the device.
+// Returns the launch's CUDA error.
 extern "C" int netsim_grant_coop(const int32_t* out, const int32_t* itime,
                                  const uint8_t* valid, const int32_t* ovc,
                                  const uint8_t* is_eject, const int32_t* busy,
@@ -127,13 +128,14 @@ extern "C" int netsim_grant_coop(const int32_t* out, const int32_t* itime,
                                  long long alive_ls,
                                  unsigned long long* scratch, uint8_t* win,
                                  uint8_t* won, int B, int N, int E,
-                                 int buf_pkts, void* stream) {
+                                 int buf_pkts, unsigned long long* launches,
+                                 void* stream) {
   bool vec = false;
   const grant_rows rows = make_rows(out, itime, valid, ovc, is_eject, busy,
                                     busy_ls, alive, alive_ls, N, buf_pkts,
                                     win, &vec);
-  return launch_one(rows, vec, scratch, win, won, nullptr, B, N, E,
-                    static_cast<cudaStream_t>(stream));
+  return launch_one(rows, vec, scratch, win, won, nullptr, launches, B, N,
+                    E, static_cast<cudaStream_t>(stream));
 }
 
 #ifdef NETSIM_PHASES

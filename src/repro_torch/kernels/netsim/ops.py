@@ -23,8 +23,11 @@ the call's priority, `kernel_for(explicit_prio)`, picks between them:
 
 A call may name its kernel (`kernel=`), as the tests and ``chip_smoke.py``
 do to hold both to the plain versions and to time them against each
-other.  Launches are counted per wrapper and per kernel (`launches`,
-`launches_by_kernel`).
+other.  Launches are counted per wrapper and per kernel twice: on the
+host where a wrapper launches (`launches`, `launches_by_kernel`; a launch
+recorded into a CUDA graph counts once, at its recording), and on the
+device by the kernel itself (`device_launches`), which counts every
+replay of a graph too.
 """
 from __future__ import annotations
 
@@ -47,19 +50,22 @@ MAX_LANES = 65_535
 _P, _L, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 _ARGTYPES = {
     "netsim_grant": [_P, _P, _P, _P, _P, _P, _L, _P, _L, _P, _P, _P, _I, _I,
-                     _I, _I, _P],
+                     _I, _I, _P, _P],
     "netsim_cycle_core": [_P, _P, _P, _P, _P, _L, _P, _P, _P, _P, _I, _I,
-                          _I, _P],
+                          _I, _P, _P],
     "netsim_grant_coop": [_P, _P, _P, _P, _P, _P, _L, _P, _L, _P, _P, _P,
-                          _I, _I, _I, _I, _P],
+                          _I, _I, _I, _I, _P, _P],
     "netsim_cycle_core_coop": [_P, _P, _P, _P, _L, _P, _P, _P, _P, _I, _I,
-                               _I, _P],
+                               _I, _P, _P],
 }
 # library name -> {function name: the bound ctypes function}, bound once
 _BOUND: dict = {}
 # (device, stream, B, E) -> the coop kernel's scratch, kept between calls
 _SCRATCH: OrderedDict = OrderedDict()
 _SCRATCH_KEPT = 8
+WRAPPERS = ("grant", "cycle_core")
+# device -> int64 [wrapper, kernel]: the launches the kernels counted
+_DEVICE_LAUNCHES: dict = {}
 
 
 def library(name: str = LIBRARY, sources=SOURCES) -> ctypes.CDLL:
@@ -108,6 +114,36 @@ def _scratch(device, stream, B, E):
         while len(_SCRATCH) > _SCRATCH_KEPT:
             _SCRATCH.popitem(last=False)
     return scratch
+
+
+def _launch_slot(device, wrapper, kernel) -> int:
+    """The address of the device count that `wrapper`'s `kernel` adds one
+    to at each launch.  The counts are made by the first eager call on
+    `device` (a graph capture must not make them: it would record their
+    zeroing and replay it)."""
+    counts = _DEVICE_LAUNCHES.get(device)
+    if counts is None:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("netsim: call a kernel once outside a CUDA "
+                               "graph capture before capturing it")
+        counts = _DEVICE_LAUNCHES[device] = torch.zeros(
+            (len(WRAPPERS), len(KERNELS)), dtype=torch.int64, device=device)
+    # int64 [wrapper, kernel], row-major
+    return counts.data_ptr() + 8 * (WRAPPERS.index(wrapper) * len(KERNELS)
+                                    + KERNELS.index(kernel))
+
+
+def device_launches(device=None) -> dict:
+    """{wrapper: {kernel: launches}} as the kernels counted them on
+    `device` (default: the current CUDA device) since the first call there:
+    every eager launch and every replay of a captured one.  Reads the
+    device, so it waits for the work issued so far."""
+    device = torch.device("cuda", torch.cuda.current_device()) \
+        if device is None else torch.device(device)
+    counts = _DEVICE_LAUNCHES.get(device)
+    rows = ([[0] * len(KERNELS)] * len(WRAPPERS) if counts is None
+            else counts.cpu().tolist())
+    return {w: dict(zip(KERNELS, row)) for w, row in zip(WRAPPERS, rows)}
 
 
 def _check(kernel, name, x, dtype, shape):
@@ -200,7 +236,8 @@ def grant(out, itime, valid, ovc_count, is_eject, ch_busy, ch_alive,
     `kernel_for`).
 
     Every CUDA launch adds one to `grant.launches` and to
-    `grant.launches_by_kernel[kernel]`."""
+    `grant.launches_by_kernel[kernel]`, and the kernel adds one to its
+    `device_launches` count each time it runs."""
     args = (out, itime, valid, ovc_count, is_eject, ch_busy, ch_alive)
     device = _one_device("grant", args)
     _checked_kernel("grant", kernel)
@@ -225,7 +262,8 @@ def grant(out, itime, valid, ovc_count, is_eject, ch_busy, ch_alive,
              torch.empty((B, E), dtype=torch.int64, device=device))
     rc = _fn(f"netsim_grant{'_coop' if kernel == 'coop' else ''}")(
         *ptrs, *channels, table.data_ptr(), win.data_ptr(), won.data_ptr(),
-        B, N, E, int(buf_pkts), stream)
+        B, N, E, int(buf_pkts), _launch_slot(device, "grant", kernel),
+        stream)
     if rc != 0:
         raise RuntimeError(f"netsim grant {kernel} kernel launch failed: "
                            f"CUDA error {rc}")
@@ -272,7 +310,8 @@ def cycle_core(out, itime, ok, ch_ok, *, r2: int, prio=None,
     "three_pass"; None: `kernel_for`).
 
     Every CUDA launch adds one to `cycle_core.launches` and to
-    `cycle_core.launches_by_kernel[kernel]`."""
+    `cycle_core.launches_by_kernel[kernel]`, and the kernel adds one to its
+    `device_launches` count each time it runs."""
     args = (out, itime, ok, ch_ok) + (() if prio is None else (prio,))
     device = _one_device("cycle_core", args)
     _checked_kernel("cycle_core", kernel)
@@ -295,7 +334,7 @@ def cycle_core(out, itime, ok, ch_ok, *, r2: int, prio=None,
     stream = _stream()
     ptrs = [x.data_ptr() for x in rows]
     outs = (win.data_ptr(), won.data_ptr(), wprio.data_ptr(), B, N, E,
-            stream)
+            _launch_slot(device, "cycle_core", kernel), stream)
     if kernel == "coop":
         rc = _fn("netsim_cycle_core_coop")(
             *ptrs, ch_ok.data_ptr(), ch_ok.stride(0),

@@ -106,5 +106,6 @@ def randint(key: torch.Tensor, shape: tuple, minval: int,
 
 def bernoulli(key: torch.Tensor, p: float, shape: tuple) -> torch.Tensor:
     """`jax.random.bernoulli(key, p, shape)` (float32 threshold)."""
-    return uniform(key, shape) < torch.tensor(p, dtype=torch.float32,
-                                              device=key.device)
+    # a fill, not a host copy: the draw can be captured in a CUDA graph
+    return uniform(key, shape) < torch.full((), p, dtype=torch.float32,
+                                            device=key.device)
