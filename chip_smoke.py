@@ -104,10 +104,31 @@ Phases (any failure ends the run with a nonzero exit):
    forward's own move under a halved SSD chunk if larger), and for the
    two recurrent models also in fp32 at 1e-3;
 11. the served smoke models in fp32 on the card against the CPU: equal
-   greedy tokens, prefill logits within 1e-4.
+   greedy tokens, prefill logits within 1e-4;
+12. the experiment layer on the card: Fig. 11's grid at paper scale
+   (`fig11_spec(fast=False)`: radix-16 g = 41 switch-less 1B and 2B and
+   the switch-based Dragonfly, uniform and bit-reverse, offered 0.4 / 0.7
+   / 1.0, 6 cells of 3 lanes), its cycles cut from 2,000 + 8,000 to 300 +
+   1,200 through a spec JSON under `build/exp/`, run through
+   `repro_torch.exp.run.main` and then again: one CUDA-graph capture a
+   grid, then none; packet conservation on every lane; the switch-less 1B
+   uniform cell equal, lane for lane, to `Simulator.sweep_grid`; per cell
+   cycles/s and capture seconds, and the memory held with the cells'
+   graphs cached; then `smoke`, `smoke_fused`, `smoke_compact`,
+   `smoke_faults` and `smoke_warm_faults` on the card equal to the CPU,
+   row for row (so the path runs both `cycle_core` kernels too);
+13. windowed sessions and the service on the card: the fig11 1B uniform
+   cell as a `LaneSession` at window 128, at K = 1 and 4, equal to the
+   one-shot grid, and at K = 1 an `export()` after window 5 restored into
+   a fresh session, equal too (windowed cycles/s beside the one-shot's);
+   a `SimService` with `smoke` (alice, bob), `smoke_faults` (carol) and
+   `smoke_warm_faults` (dave) at window 100, killed after 2 rounds and
+   resumed from its snapshot: the uninterrupted run's JSONL byte for
+   byte, the CPU run's lines after the meta line, captures == buckets.
 
-Then one JSON line of kernel numbers, the card's name and power limit, and
-the final status line.  Exits nonzero, printing no result, without a CUDA
+Then one JSON line of kernel numbers (the netsim entries with the launches
+of every path, phases 4 and 12-13, in `by_path`), the card's name and
+power limit, and the final status line.  Exits nonzero, printing no result, without a CUDA
 device or without the repository's sources.
 """
 from __future__ import annotations
@@ -1793,6 +1814,299 @@ def phase_lm_parity(device, arch):
           f"{outs[0][0].tolist()}; prefill logits relative {rel:.3e}")
 
 
+# phase 12: Fig. 11's grid at paper scale (radix-16, g = 41), its cycles
+# cut from 2,000 + 8,000 to these; the small scenarios the card runs
+# against the CPU
+FIG11_CUT = dict(warmup=300, measure=1200)
+EXP_SMALL = ("smoke", "smoke_fused", "smoke_compact", "smoke_faults",
+             "smoke_warm_faults")
+EXP_TIMINGS = ("wall_s", "compile_s")
+# phase 13: the windowed cell and the service
+WINDOW = 128
+WINDOW_K = (1, 4)
+SERVE_SUBS = (("alice", "smoke"), ("bob", "smoke"),
+              ("carol", "smoke_faults"), ("dave", "smoke_warm_faults"))
+SERVE_WINDOW = 100
+
+
+def _jsonl(path):
+    return Path(path).read_text().splitlines()
+
+
+def _strip(rows):
+    return [{k: v for k, v in r.items() if k not in EXP_TIMINGS}
+            for r in rows]
+
+
+def phase_exp(device):
+    """Fig. 11's grid at paper scale through `repro_torch.exp.run.main`
+    (cycles cut, printed), run twice: one capture a grid, then none;
+    packet conservation on every lane; the switch-less 1B uniform cell
+    equal to `Simulator.sweep_grid`; per cell cycles/s, capture seconds
+    and the memory held with the cells' graphs cached.  Then the small
+    scenarios on the card against the CPU, row for row.  Returns the
+    numbers, the fig11 spec and its grids."""
+    import torch
+    from repro_torch.core.engine import graphs
+    from repro_torch.core.engine import sweep as SW
+    from repro_torch.core.simulator import Simulator
+    from repro_torch.exp import registry, runner
+    from repro_torch.exp.run import main as run_main
+    full = registry.fig11_spec(fast=False)
+    spec = full.with_axes(**FIG11_CUT)
+    out_dir = ROOT / "build" / "exp"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    spec_path = out_dir / "fig11_g41.json"
+    spec_path.write_text(json.dumps(spec.to_dict()))
+    cycles = spec.axes.warmup + spec.axes.measure
+    net = spec.topologies[0].build()
+    print(f"[exp] fig11 (fast=False): {spec.num_grids} grids x "
+          f"{spec.axes.lanes_per_grid} lanes, g = {net.meta['g']} "
+          f"({net.num_chips} chips, {net.num_channels} channels "
+          f"switch-less 1B); cycles cut from "
+          f"{full.axes.warmup} + {full.axes.measure} to "
+          f"{spec.axes.warmup} + {spec.axes.measure} ({spec_path})")
+    fresh_peak()
+    t0 = time.perf_counter()
+    cell_list = list(runner.cells(spec))
+    probes = [ConservationProbe(runner.cell_sweep(c, spec.axes, device),
+                                spec.axes.warmup, cycles - 1)
+              for c in cell_list]
+    setup_s = time.perf_counter() - t0
+    base = torch.cuda.memory_allocated()
+    args = ["--spec", str(spec_path), "--quiet",
+            "--out", str(out_dir / "fig11_g41.json.out"),
+            "--jsonl", str(out_dir / "fig11_g41.jsonl")]
+    rc, wall, dev1, _ = counted(lambda: run_main(args, device=device))
+    check(rc == 0, f"fig11 run exited {rc}")
+    held = dict(memory_allocated=torch.cuda.memory_allocated(),
+                max_memory_allocated=torch.cuda.max_memory_allocated(),
+                memory_reserved=torch.cuda.memory_reserved(),
+                graphs_cached=len(graphs._GRAPHS), before=base)
+    first = json.loads((out_dir / "fig11_g41.json.out").read_text())
+    check(first["compile_counts"] == [1] * spec.num_grids,
+          f"fig11 first run captures {first['compile_counts']}")
+    captured = list(graphs._GRAPHS.values())[-spec.num_grids:]
+    before = SW.compile_counter()
+    again, wall2, dev2, _ = counted(
+        lambda: runner.run_experiment(spec, device=device))
+    check(again.compile_counts == [0] * spec.num_grids
+          and SW.compile_counter() == before,
+          f"fig11 second run captured {again.compile_counts}")
+    rows1 = [{k: v for k, v in r.items() if k not in EXP_TIMINGS
+              + ("compile_count",)} for r in first["rows"]]
+    rows2 = [{k: v for k, v in r.items() if k not in EXP_TIMINGS
+              + ("compile_count", "avg_hops_by_type")} for r in again.rows()]
+    check(rows1 == rows2, "fig11: the second run's rows != the first's")
+    results = [r for r in map(json.loads, _jsonl(out_dir / "fig11_g41.jsonl"))
+               if r["kind"] == "result"]
+    R = len(spec.axes.rates)
+    cells_out = []
+    for gi, (g, probe, graph) in enumerate(zip(again.grids, probes,
+                                               captured)):
+        tag = f"exp {g.topology.label} {g.traffic.label}"
+        probe.check_lanes(g.sweep_result(0), tag)
+        for ri, res in enumerate(g.results[0]):
+            rec = results[gi * R + ri]
+            check(rec["delivered_pkts"] == res[0].delivered_pkts
+                  and rec["throughput"] == res[0].throughput_per_chip
+                  and rec["hops_by_type"] == res[0].hops_by_type,
+                  f"{tag}: JSONL lane {ri} != the second run")
+        grid_wall = sum(r["wall_s"] for r in first["rows"][gi * R:
+                                                           (gi + 1) * R])
+        cells_out.append(dict(
+            topology=g.topology.label, pattern=g.traffic.label,
+            lanes=R, cycles_per_s=cycles / grid_wall,
+            again_cycles_per_s=cycles / g.wall_s,
+            capture_s=graph.capture_s, superstep=graph.K))
+        print(f"[exp]   {tag}: {R} lanes x {cycles} cycles, "
+              f"{cycles / grid_wall:.2f} cycles/s (second run "
+              f"{cycles / g.wall_s:.2f}), capture {graph.capture_s:.3f} s "
+              f"(K {graph.K})")
+    cell = cell_list[0]
+    check((cell.topology.label, cell.traffic.pattern) ==
+          ("switchless-1B", "uniform"), "fig11's first cell")
+    sim = Simulator(cell.net, cell.cfg, cell.pattern, device=device)
+    ref = sim.sweep_grid(list(spec.axes.rates), list(spec.axes.seeds))
+    check([dataclasses.asdict(r) for r in ref.flat()]
+          == [dataclasses.asdict(r) for r in again.grids[0].sweep_result(0)
+              .flat()],
+          "fig11 switch-less 1B uniform != Simulator.sweep_grid")
+    print(f"[exp] fig11 switchless-1B uniform == Simulator.sweep_grid on "
+          f"all {R} lanes, field for field")
+    expect = spec.num_grids * cycles
+    check(dev1["grant"]["coop"] == expect + spec.num_grids
+          and dev2["grant"]["coop"] == expect
+          and not any(dev1["cycle_core"].values()),
+          f"fig11 grant launches {dev1['grant']} / {dev2['grant']} != "
+          f"{expect} + one warm-up a capture")
+    print(f"[exp] fig11: wall {wall:.2f} s (set-up {setup_s:.2f} s), "
+          f"second run {wall2:.2f} s; grant launches on the card "
+          f"{dev1['grant']} then {dev2['grant']}; with the {spec.num_grids} "
+          f"cells' graphs cached: memory_allocated "
+          f"{held['memory_allocated']}, max_memory_allocated "
+          f"{held['max_memory_allocated']}, memory_reserved "
+          f"{held['memory_reserved']} bytes (before {base})")
+    small = {}
+    for name in EXP_SMALL:
+        scen = registry.get_scenario(name)
+        card, _, dev, _ = counted(
+            lambda: runner.run_experiment(scen, device=device))
+        cpu = runner.run_experiment(scen, device="cpu")
+        check(_strip(card.rows()) == _strip(cpu.rows()),
+              f"exp {name}: CUDA rows != CPU rows")
+        small[name] = dev
+        print(f"[exp] {name}: {len(card.rows())} rows CUDA == CPU, every "
+              f"field; captures {card.compile_counts}, escalations "
+              f"{[g.escalations for g in card.grids]}; launches on the "
+              f"card {dev}")
+    launches = {w: {k: sum(d[w][k] for d in small.values())
+                    for k in dev1[w]} for w in dev1}
+    return dict(fig11=dict(cells=cells_out, memory=held, wall_s=wall,
+                           launches=dev1, second_run_launches=dev2),
+                small_launches=launches), spec, again
+
+
+def phase_windows(device, spec, grids):
+    """The fig11 switch-less 1B uniform cell (g = 41, 1,500 cycles) as a
+    `LaneSession` at window 128, at K = 1 and 4: `finish()` equals the
+    one-shot grid; at K = 1 an `export()` after window 5, restored into a
+    fresh session, equals it too.  Each K's windowed cycles/s beside a
+    one-shot run of the same lanes on the same graph, and the host's time
+    to draw the run's key chain.  Returns the numbers and launches."""
+    import torch
+    from repro_torch.core.engine.step import _key_chain
+    from repro_torch.core.engine.sweep import BatchedSweep
+    from repro_torch.exp import runner
+    cell = next(runner.cells(spec))
+    cycles = spec.axes.warmup + spec.axes.measure
+    lanes = [(r, s, None) for r in spec.axes.rates for s in spec.axes.seeds]
+    want = [dataclasses.asdict(r) for r in grids.grids[0].sweep_result(0)
+            .flat()]
+    sweep = BatchedSweep(cell.net, cell.cfg, cell.pattern, device=device)
+    keys = sweep._prepare_lanes(lanes)[2]
+    t0 = time.perf_counter()
+    _key_chain(keys, cycles)
+    out = dict(key_chain_s=time.perf_counter() - t0,
+               phase12_cycles_per_s=cycles / grids.grids[0].wall_s)
+    print(f"[windows] the host draws the key chain of {len(lanes)} lanes x "
+          f"{cycles} cycles in {out['key_chain_s']:.3f} s")
+    for K in WINDOW_K:
+
+        def windowed():
+            ses = sweep.start_lanes(lanes, window=WINDOW)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            snap, windows = None, 0
+            while not ses.done():
+                ses.advance()
+                windows += 1
+                if windows == 5:
+                    snap = ses.export()
+            torch.cuda.synchronize()
+            return ses, snap, windows, time.perf_counter() - t0
+
+        with superstep_env(K):
+            (ses, snap, windows, run_s), _, dev, _ = counted(windowed)
+            one = sweep.run_lanes(lanes)
+        got = [dataclasses.asdict(r) for r in ses.finish().results]
+        check(got == want and [dataclasses.asdict(r) for r in one.results]
+              == want, f"windowed K {K} != the one-shot grid")
+        check(one.compile_count == 0, f"one-shot K {K} captured")
+        calls = cycles + K * ses.compile_count
+        check(dev["grant"]["coop"] == calls,
+              f"windowed K {K}: grant launches {dev['grant']} != {calls}")
+        out[f"K{K}"] = dict(cycles_per_s=cycles / run_s,
+                            one_shot_cycles_per_s=cycles / one.wall_s,
+                            captures=ses.compile_count,
+                            capture_s=ses.compile_s, windows=windows,
+                            launches=dev)
+        print(f"[windows] fig11 switchless-1B uniform, {len(lanes)} lanes x "
+              f"{cycles} cycles at window {WINDOW}, K {K}: {windows} "
+              f"windows, {cycles / run_s:.2f} cycles/s windowed against "
+              f"{cycles / one.wall_s:.2f} one-shot on the same graph "
+              f"(phase 12's grid: {out['phase12_cycles_per_s']:.2f}, K 1); "
+              f"captures {ses.compile_count} ({ses.compile_s:.3f} s); both "
+              f"== the phase 12 grid; launches on the card {dev}")
+        if K == 1:
+            restored, _, dev, _ = counted(lambda: _drain_session(
+                sweep.start_lanes(lanes, window=WINDOW, restore=snap)))
+            check(restored == want,
+                  "export after window 5, restored != one-shot")
+            out["launches_restored"] = dev
+            print(f"[windows] export after window 5 (cycle "
+                  f"{snap['cycle']}) restored into a fresh session == the "
+                  f"one-shot grid; launches on the card {dev}")
+    return out
+
+
+def _drain_session(ses):
+    while not ses.done():
+        ses.advance()
+    return [dataclasses.asdict(r) for r in ses.finish().results]
+
+
+def phase_service(device):
+    """A `SimService` on the card with smoke (alice, bob), smoke_faults
+    (carol) and smoke_warm_faults (dave): uninterrupted, then killed after
+    2 rounds and resumed from its snapshot (the same bytes), then the
+    same submissions on the CPU (the same lines after the meta line);
+    captures == distinct buckets.  Returns the launches."""
+    import shutil
+    from repro_torch.core.engine import sweep as SW
+    from repro_torch.exp import get_scenario
+    from repro_torch.exp.serve import SimService, lower_request
+    out_dir = ROOT / "build" / "serve"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out_dir.mkdir(parents=True)
+    buckets = {u.bucket for rid, (t, s) in enumerate(SERVE_SUBS, start=1)
+               for u in lower_request(get_scenario(s), rid, t, 0)[0]}
+
+    def serve(tag, dev, max_rounds=None, resume=False):
+        ck = out_dir / f"ck_{tag}"
+        path = out_dir / f"{tag}.jsonl"
+        if resume:
+            svc = SimService.resume(str(ck), out=str(path), device=dev)
+        else:
+            svc = SimService(out=str(path), window=SERVE_WINDOW,
+                             state_dir=str(ck), checkpoint_every=1,
+                             device=dev)
+            for tenant, name in SERVE_SUBS:
+                svc.submit(get_scenario(name), tenant=tenant)
+        svc.run(max_rounds=max_rounds)
+        svc.close()
+        return svc
+
+    SW.clear_aot_cache()
+    before = SW.compile_counter()
+    base, wall, dev, _ = counted(lambda: serve("base", device))
+    captures = SW.compile_counter() - before
+    check(base.idle and captures == len(buckets),
+          f"serve: {captures} captures for {len(buckets)} buckets")
+    killed, _, dev_k, _ = counted(lambda: serve("kr", device, max_rounds=2))
+    check(not killed.idle, "serve: the killed run drained")
+    resumed, _, dev_r, _ = counted(lambda: serve("kr", device, resume=True))
+    check(resumed.idle and SW.compile_counter() - before == captures,
+          "serve: the resumed run did not drain or captured")
+    check((out_dir / "kr.jsonl").read_bytes()
+          == (out_dir / "base.jsonl").read_bytes(),
+          "serve: killed + resumed JSONL != uninterrupted")
+    serve("cpu", "cpu")
+    card, cpu = _jsonl(out_dir / "base.jsonl"), _jsonl(out_dir / "cpu.jsonl")
+    check(len(card) == len(cpu) and card[1:] == cpu[1:],
+          "serve: CUDA JSONL != CPU JSONL after the meta line")
+    results = sum(json.loads(line)["kind"] == "result" for line in card)
+    print(f"[serve] {len(SERVE_SUBS)} submissions, {len(buckets)} buckets, "
+          f"{captures} captures, {base._round} rounds at window "
+          f"{SERVE_WINDOW}, {wall:.2f} s; killed after 2 rounds and resumed "
+          f"from its snapshot: the uninterrupted run's {len(card)} lines, "
+          f"byte for byte; the CPU's lines after the meta line ({results} "
+          f"result records); launches on the card {dev}, killed {dev_k}, "
+          f"resumed {dev_r}")
+    return {w: {k: dev[w][k] + dev_k[w][k] + dev_r[w][k] for k in dev[w]}
+            for w in dev}
+
+
 def kernel_entry(name, source, replaces, launches, err, t):
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches, "max_abs_err": err,
@@ -1866,6 +2180,11 @@ def main(argv=None):
               for arch, S in SERVE}
     for arch, _ in SERVE:
         phase_lm_parity(device, arch)
+    torch.cuda.empty_cache()
+    exp_t, fig11, fig11_grids = phase_exp(device)
+    windows_t = phase_windows(device, fig11, fig11_grids)
+    del fig11_grids
+    serve_launches = phase_service(device)
     # the netsim kernels: the coop kernel's numbers, the three-pass
     # kernel's time on the same inputs beside them
     grant_entry = kernel_entry(
@@ -1898,6 +2217,24 @@ def main(argv=None):
     cycle_entry["by_step"] = {impl: dict(cycle_t[impl], **cycle_runs[impl],
                                          loops=graph_t[impl])
                               for impl in FAST_STEPS}
+    # the exp and serve paths' launches (phases 12-13), each counted on the
+    # card over its own run, beside the main path's
+    paths = dict(exp_fig11=exp_t["fig11"]["launches"],
+                 exp_fig11_again=exp_t["fig11"]["second_run_launches"],
+                 exp_small=exp_t["small_launches"],
+                 **{f"windowed_K{K}": windows_t[f"K{K}"]["launches"]
+                    for K in WINDOW_K},
+                 windowed_restored=windows_t["launches_restored"],
+                 serve=serve_launches)
+    for entry, wrapper in ((grant_entry, "grant"),
+                           (cycle_entry, "cycle_core")):
+        entry["by_path"] = {"main": dict(
+            launches=entry["launches"],
+            launches_by_kernel=entry["launches_by_kernel"])}
+        entry["by_path"].update({
+            path: dict(launches=sum(n[wrapper].values()),
+                       launches_by_kernel=n[wrapper])
+            for path, n in paths.items()})
     # llama's prefill gives the flash kernel's headline numbers;
     # recurrentgemma's local layers (hd 256, window 2048) their own
     fa_entry = kernel_entry(

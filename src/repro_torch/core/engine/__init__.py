@@ -14,7 +14,8 @@ with a leading lane dimension:
 `graphs.CycleGraph` (K-cycle supersteps of `step.superstep_body`, the
 cycle index on the device, replayed as a captured CUDA graph on CUDA and
 run eagerly on the CPU) are the cycle loops; `sweep.BatchedSweep` runs
-a (rate x seed x fault) lane grid through them.
+a (rate x seed x fault) lane grid through them, at once or window by
+window (`sweep.LaneSession`).
 """
 from .state import (SimState, SimStats, build_consts, build_lane,
                     epoch_index, is_scheduled, lane_epoch, make_state,
@@ -28,7 +29,8 @@ from .fused import (capacity_ladder, compact_rows, grant_form,
                     initial_capacity, make_compact_step, make_fused_step,
                     next_rung)
 from .step import make_step, run_scan, superstep_body
-from .sweep import BatchedSweep, LaneRun, SweepResult
+from .sweep import (BatchedSweep, LaneRun, LaneSession, SweepResult,
+                    clear_aot_cache, compile_counter, superstep)
 
 __all__ = [
     "SimState", "SimStats", "Requests", "build_consts", "build_lane",
@@ -39,5 +41,6 @@ __all__ = [
     "zero_stats", "capacity_ladder", "compact_rows", "grant_form",
     "initial_capacity", "make_compact_step", "make_fused_step", "next_rung",
     "make_step", "run_scan", "superstep_body",
-    "BatchedSweep", "LaneRun", "SweepResult",
+    "BatchedSweep", "LaneRun", "LaneSession", "SweepResult",
+    "clear_aot_cache", "compile_counter", "superstep",
 ]

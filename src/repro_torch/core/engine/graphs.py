@@ -12,6 +12,12 @@ superstep's subkeys out of the run's host-drawn key chain.  On a CUDA
 device the superstep is captured and replayed; on the CPU the same
 superstep runs eagerly on the same buffers.
 
+A windowed `sweep.LaneSession` shares these graphs: each window copies
+the session's state into the static buffers, sets `t` to the session's
+absolute cycle (the warmup reset stays absolute), replays, and copies
+the state back out (`CycleGraph.advance`), so sessions of one signature
+interleave on one graph.
+
 `graph_for` keeps one graph for each (step, K, lane count, lane-data
 signature, device) key, the last `GRAPHS_KEPT` keys used (each graph
 holds its static state and memory pool, hundreds of MB at the paper's
@@ -19,8 +25,11 @@ scale), and on CUDA captures on a miss: a warm-up of one
 superstep on the capture stream (it builds the kernels and creates every
 tensor a step makes lazily, such as the coop kernel's scratch, outside
 the graph), then the capture.  A capture that fails raises; nothing
-falls back to the eager loop.  `captures()` counts the captures and
-`clear()` drops the graphs with their memory pools.
+falls back to the eager loop.  `captures()` counts the captures,
+`builds()` the graphs made on any device (a capture on CUDA, a set of
+static buffers on the CPU), and `clear()` drops the graphs with their
+memory pools.  A caller that cycles through more than `GRAPHS_KEPT`
+keys (a service with more live signatures) evicts and recaptures.
 
 The netsim wrappers' host counts tick where a wrapper launches: at the
 warm-up and once for each launch the capture records, never at a
@@ -42,6 +51,7 @@ from .step import superstep_body
 _GRAPHS: OrderedDict = OrderedDict()
 GRAPHS_KEPT = 8
 _CAPTURES = [0]
+_BUILDS = [0]
 # device -> the side stream every capture (and its warm-up) runs on
 _STREAMS: dict = {}
 
@@ -49,6 +59,12 @@ _STREAMS: dict = {}
 def captures() -> int:
     """Graphs captured so far in this process."""
     return _CAPTURES[0]
+
+
+def builds() -> int:
+    """Graphs made so far in this process, on any device (a cache miss of
+    `graph_for`; on CUDA each is a capture)."""
+    return _BUILDS[0]
 
 
 def clear() -> None:
@@ -127,14 +143,16 @@ class CycleGraph:
         if dev.type == "cuda":
             self._capture(state0, rate_pkt, fl)
 
-    def load(self, state0: SimState, rate_pkt, fl, reset_at: int) -> None:
-        """Copy a run's inputs into the static buffers; `t` to cycle 0."""
+    def load(self, state0: SimState, rate_pkt, fl, reset_at: int,
+             t0: int = 0) -> None:
+        """Copy a run's inputs into the static buffers; `t` to cycle
+        `t0`."""
         _copy_state(self.state, state0)
         self.rate.copy_(rate_pkt)
         for k, base in self._fl_base.items():
             v = fl[k]
             base.copy_(v[:1] if v.stride(0) == 0 else v)
-        self.t.zero_()
+        self.t.fill_(t0)
         self.reset_at.fill_(reset_at)
 
     def _advance(self) -> None:
@@ -165,22 +183,35 @@ class CycleGraph:
         self.capture_s = time.perf_counter() - t0
         _CAPTURES[0] += 1
 
-    def run(self, state0: SimState, rate_pkt, fl, reset_at: int,
-            subs) -> SimStats:
-        """Advance the loaded lanes ``len(subs)`` cycles (`subs` the run's
-        ``[cycles, B, 2]`` subkeys, a multiple of K); returns a copy of
-        the final counters, so a later run may reuse the buffers."""
-        n = subs.shape[0] // self.K
-        self.load(state0, rate_pkt, fl, reset_at)
+    def _replay(self, state0: SimState, rate_pkt, fl, reset_at: int,
+                subs, t0: int) -> None:
+        """Load the inputs and advance ``len(subs)`` cycles (`subs` the
+        ``[cycles, B, 2]`` subkeys, a multiple of K) from cycle `t0`."""
+        self.load(state0, rate_pkt, fl, reset_at, t0)
         K = self.K
-        for r in range(n):
+        for r in range(subs.shape[0] // K):
             self.subs.copy_(subs[r * K:(r + 1) * K])
             if self.graph is None:
                 self._advance()
             else:
                 self.graph.replay()
+
+    def run(self, state0: SimState, rate_pkt, fl, reset_at: int,
+            subs) -> SimStats:
+        """Advance the lanes ``len(subs)`` cycles from cycle 0; returns a
+        copy of the final counters, so a later run may reuse the
+        buffers."""
+        self._replay(state0, rate_pkt, fl, reset_at, subs, 0)
         return SimStats(**{k: v.clone()
                            for k, v in vars(self.state.stats).items()})
+
+    def advance(self, state: SimState, rate_pkt, fl, reset_at: int, subs,
+                t0: int) -> None:
+        """One window of a session: advance `state` ``len(subs)`` cycles
+        from absolute cycle `t0` in place (copied in, replayed, copied
+        back out)."""
+        self._replay(state, rate_pkt, fl, reset_at, subs, t0)
+        _copy_state(state, self.state)
 
 
 def graph_for(step, K: int, state0: SimState, rate_pkt, fl) -> tuple:
@@ -193,6 +224,7 @@ def graph_for(step, K: int, state0: SimState, rate_pkt, fl) -> tuple:
         _GRAPHS.move_to_end(key)
         return graph, False
     graph = _GRAPHS[key] = CycleGraph(step, K, state0, rate_pkt, fl)
+    _BUILDS[0] += 1
     while len(_GRAPHS) > GRAPHS_KEPT:
         _GRAPHS.popitem(last=False)
     return graph, graph.graph is not None

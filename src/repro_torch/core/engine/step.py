@@ -81,34 +81,51 @@ def make_step(net: Network, cfg, pattern, inject_mask=None, *, device=None):
     return step, consts
 
 
-def _key_chain(key: torch.Tensor, cycles: int) -> torch.Tensor:
-    """The per-cycle subkeys of the lanes `key [..., 2]`:
-    ``key_{t+1}, sub_t = split(key_t)``, returned as ``[cycles, ..., 2]``.
-    The chain is drawn on the CPU (same bits as on the card, far fewer
-    device launches) and moved to `key`'s device once."""
+def _key_chain_seq(key: torch.Tensor, cycles: int) -> tuple:
+    """The per-cycle subkeys of the lanes `key [..., 2]` and every key on
+    the way: ``key_{t+1}, sub_t = split(key_t)``, returned as
+    ``(keys [cycles + 1, ..., 2], subs [cycles, ..., 2])`` with
+    ``keys[0] == key``, so a window of r cycles hands ``keys[r]`` to the
+    next one and the windows replay the one-shot chain.  Drawn on the CPU
+    (same bits as on the card, far fewer device launches); the keys stay
+    there, the subkeys move to `key`'s device once."""
     k = key.cpu()
-    subs = []
+    keys, subs = [k], []
     for _ in range(cycles):
         s = jr.split(k)
         k, sub = s[..., 0, :], s[..., 1, :]
+        keys.append(k)
         subs.append(sub)
     if not subs:
-        return torch.empty((0,) + tuple(key.shape), dtype=key.dtype,
-                           device=key.device)
-    return torch.stack(subs).to(key.device)
+        return (torch.stack(keys), torch.empty(
+            (0,) + tuple(key.shape), dtype=key.dtype, device=key.device))
+    return torch.stack(keys), torch.stack(subs).to(key.device)
 
 
-def run_scan(step, cycles: int, reset_at: int, state0, rate_pkt, key, fl):
-    """Advance the lanes `cycles` steps; stats are zeroed after cycle
-    `reset_at` (the end of warmup).  `key` is ``[B, 2]``: lane b draws
-    the reference's per-cycle subkey chain of its key."""
-    subs = _key_chain(key, cycles)
-    state = state0
-    for t in range(cycles):
-        state, _ = step(state, (t, subs[t], rate_pkt, fl))
+def _key_chain(key: torch.Tensor, cycles: int) -> torch.Tensor:
+    """The per-cycle subkeys of the lanes `key [..., 2]` as
+    ``[cycles, ..., 2]`` on `key`'s device (`_key_chain_seq`)."""
+    return _key_chain_seq(key, cycles)[1]
+
+
+def run_steps(step, t0: int, subs, reset_at: int, state, rate_pkt, fl):
+    """Advance the lanes ``len(subs)`` steps from absolute cycle `t0`,
+    one host-int cycle a step; stats are zeroed after cycle `reset_at`
+    (the end of warmup)."""
+    for i in range(int(subs.shape[0])):
+        t = t0 + i
+        state, _ = step(state, (t, subs[i], rate_pkt, fl))
         if t == reset_at:
             state = state.replace(stats=zero_stats(state.stats))
     return state
+
+
+def run_scan(step, cycles: int, reset_at: int, state0, rate_pkt, key, fl):
+    """Advance the lanes `cycles` steps from cycle 0 (`run_steps`): `key`
+    is ``[B, 2]``, and lane b draws the reference's per-cycle subkey
+    chain of its key."""
+    return run_steps(step, 0, _key_chain(key, cycles), reset_at, state0,
+                     rate_pkt, fl)
 
 
 def superstep_body(step, K: int):

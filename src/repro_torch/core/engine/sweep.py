@@ -33,9 +33,20 @@ one after another outside the cycle loop (the reference's
 
 The compact step's capacity ladder is ported: a run whose live-row
 census outgrew its rung is re-run whole at the next rung
-(`_PendingLanes.finish`), which captures anew.  Lane/channel sharding
-over a device mesh and windowed `LaneSession`s are not ported;
-`SweepResult` keeps their fields with their single-device values.
+(`_PendingLanes.finish`), which captures anew.
+
+Windowed sessions (`BatchedSweep.start_lanes` -> `LaneSession`) advance
+the lanes one window at a time and hold their state, keys and absolute
+cycle between windows, so a service can stream counters, checkpoint and
+interleave many sessions.  Each window runs only its real cycles through
+the shared `CycleGraph`s (copied in, replayed, copied out): the K graph
+for whole supersteps and a K = 1 graph for a tail shorter than K, so a
+session costs one capture a signature, two when some window's length is
+not a multiple of K.  Chained windows replay the one-shot key chain, so
+`finish()` equals `run_lanes` bit for bit.
+
+Lane/channel sharding over a device mesh is not ported; `SweepResult`
+keeps its fields with their single-device values.
 """
 from __future__ import annotations
 
@@ -57,9 +68,10 @@ from .fused import grant_form, make_compact_step, next_rung
 from .state import (SimState, SimStats, build_lane, make_state,
                     resolve_device, stack_lanes)
 from .stats import finalize, lane_stats
-# `_key_chain` lives with the cycle loop (`step.run_scan`) that draws it;
-# it is re-exported here, where the reference defines it
-from .step import _key_chain, make_step, run_scan  # noqa: F401
+# the key chains live with the cycle loop (`step.run_scan`) that draws
+# them; they are re-exported here, where the reference defines them
+from .step import (_key_chain, _key_chain_seq, make_step,  # noqa: F401
+                   run_scan, run_steps)
 
 # the cycle loops a dispatch can run (see the module docstring)
 LOOPS = ("graph", "eager")
@@ -307,6 +319,149 @@ class _PendingLanes:
                        superstep=plan.K)
 
 
+def _host(v: torch.Tensor) -> np.ndarray:
+    """A host copy of `v` (never a view of a CPU tensor that the session
+    goes on advancing)."""
+    return v.detach().to("cpu", copy=True).numpy()
+
+
+def _host_state(state: SimState) -> SimState:
+    """A `SimState` of host numpy arrays (`b_pkt` without its sink row)."""
+    return SimState(stats=SimStats(**{k: _host(v) for k, v
+                                      in vars(state.stats).items()}),
+                    **{k: _host(v) for k, v in vars(state).items()
+                       if k != "stats"})
+
+
+def _snapshot_signature(state) -> tuple:
+    """(field, shape, numpy dtype) of a `SimState` of tensors or arrays."""
+    def sig(v):
+        dt = (v.dtype if isinstance(v, np.ndarray)
+              else torch.empty(0, dtype=v.dtype).numpy().dtype)
+        return tuple(v.shape), str(dt)
+    out = [(k, sig(v)) for k, v in vars(state).items() if k != "stats"]
+    out += [(f"stats.{k}", sig(v)) for k, v in vars(state.stats).items()]
+    return tuple(out)
+
+
+def _load_state(state: SimState, host: SimState) -> None:
+    """Copy a host snapshot into the device buffers of `state`."""
+    put = lambda dst, src: dst.copy_(torch.as_tensor(np.asarray(src)))
+    for k, v in vars(state).items():
+        if k != "stats":
+            put(v, getattr(host, k))
+    for k, v in vars(state.stats).items():
+        put(v, getattr(host.stats, k))
+
+
+class LaneSession:
+    """A paused, resumable lane dispatch advanced window by window
+    (`BatchedSweep.start_lanes`).
+
+    The session holds the lanes' `SimState` on the device, their keys
+    (``[Bp, 2]`` int64 words on the CPU, where the chain is drawn) and
+    the absolute cycle between windows.  `advance` runs one window's real
+    cycles (see the module docstring); chained windows replay the
+    one-shot key chain, so `finish()` equals `run_lanes` on the same lane
+    triples.  `export()` snapshots the dynamic state to host numpy
+    arrays; `start_lanes(..., restore=snapshot)` resumes from it bit for
+    bit, since the state, the keys and the cycle are the whole of it."""
+
+    def __init__(self, sweep, lane_triples, fault_sets, window, total,
+                 cycle, state, keys, step, superstep, rate_pkt, lane_data,
+                 pad_fraction, grant_form):
+        self.sweep = sweep
+        self.lane_triples = lane_triples
+        self.fault_sets = fault_sets
+        self.window, self.total, self.cycle = window, total, cycle
+        self.state, self.keys = state, keys
+        self.step, self.superstep = step, superstep
+        self._rate_pkt, self._lane_data = rate_pkt, lane_data
+        self.placement = "single"
+        self.pad_fraction = pad_fraction
+        self.grant_form = grant_form
+        self.capacity = getattr(step, "compact_capacity", 0)
+        self.num_lanes = len(lane_triples)
+        # the graphs `start_lanes` made for the session (captures on
+        # CUDA, static buffers on the CPU) and their seconds
+        self.compile_s, self.compile_count = 0.0, 0
+
+    def done(self) -> bool:
+        return self.cycle >= self.total
+
+    def advance(self) -> int:
+        """Run one window (`window` cycles, clipped at the budget);
+        returns the new absolute cycle."""
+        if self.done():
+            return self.cycle
+        real = min(self.window, self.total - self.cycle)
+        keys, subs = _key_chain_seq(self.keys, real)
+        subs = subs.to(self.sweep.device)
+        reset_at = self.sweep.cfg.warmup
+        if self.sweep.loop == "eager":
+            self.state = run_steps(self.step, self.cycle, subs, reset_at,
+                                   self.state, self._rate_pkt,
+                                   self._lane_data)
+        else:
+            main = real - real % self.superstep
+            t = self.cycle
+            for k, n in ((self.superstep, main), (1, real - main)):
+                if n:
+                    graph, _ = graphs.graph_for(self.step, k, self.state,
+                                                self._rate_pkt,
+                                                self._lane_data)
+                    graph.advance(self.state, self._rate_pkt,
+                                  self._lane_data, reset_at,
+                                  subs[t - self.cycle:t - self.cycle + n], t)
+                    t += n
+        self.keys = keys[real]
+        self.cycle += real
+        return self.cycle
+
+    def stats_host(self) -> SimStats:
+        """The per-lane counters as host numpy arrays (leading axis the
+        padded lane count; the real lanes come first)."""
+        return SimStats(**{k: _host(v)
+                           for k, v in vars(self.state.stats).items()})
+
+    def lane_stats(self, i: int) -> SimStats:
+        """Real lane i's current counters (host)."""
+        return lane_stats(self.stats_host(), i)
+
+    def export(self) -> dict:
+        """The session's dynamic state as host arrays: ``{"state":
+        SimState of numpy, "keys": [Bp, 2] int64, "cycle": int}``."""
+        return dict(state=_host_state(self.state),
+                    keys=self.keys.numpy().copy(), cycle=int(self.cycle))
+
+    def finish(self) -> LaneRun:
+        """Per-lane `SimResult`s once the budget is spent (`wall_s` is not
+        tracked per window and reads 0.0)."""
+        if not self.done():
+            raise ValueError(
+                f"session at cycle {self.cycle}/{self.total}: advance() "
+                f"to the full budget before finish()")
+        stats = SimStats(**{k: v.cpu()
+                            for k, v in vars(self.state.stats).items()})
+        occ = int(stats.occ_peak[:self.num_lanes].max())
+        if self.capacity and occ > self.capacity:
+            # a session cannot escalate: its snapshots and streamed stats
+            # already hold the truncated active set
+            raise RuntimeError(
+                f"compact capacity {self.capacity} overflowed: the live "
+                f"set peaked at {occ} rows — windowed sessions cannot "
+                f"re-dispatch at a larger ladder rung mid-run; rerun "
+                f"with REPRO_COMPACT_CAP>={occ} (or step_impl='fused')")
+        cfg, sweep = self.sweep.cfg, self.sweep
+        results = [finalize(lane_stats(stats, i), cfg,
+                            self.lane_triples[i][0],
+                            sweep._chips(self.fault_sets[i]))
+                   for i in range(self.num_lanes)]
+        return LaneRun(results, 0.0, self.compile_s, self.compile_count,
+                       self.fault_sets, self.placement, self.pad_fraction,
+                       self.grant_form, occ, self.capacity, self.superstep)
+
+
 class BatchedSweep:
     """Sweep runner over an arbitrary lane grid: one step serves every
     (rate, seed, fault) lane.  `faults` degrades every lane with one fault
@@ -365,26 +520,31 @@ class BatchedSweep:
                  else self._inj_mask & faults.term_alive(self.net))
         return self.net.num_chips * alive.sum() / self.net.num_terminals
 
-    def _prepare_lanes(self, lanes):
+    def _prepare_lanes(self, lanes, force_stack: bool = False,
+                       epochs: int | None = None):
         """Compose per-lane fault data; returns the lane rates ``[B]``,
-        keys ``[B, 2]``, the lane-stacked fault dict and the composed fault
-        states.  When any lane is warm (a `FaultSchedule`) every lane is
-        promoted to a schedule so all lanes share one epoch-stacked
-        structure; when every lane has one fault state it is shared
-        (stride-0 views) instead of stacked."""
+        keys ``[B, 2]`` (on the CPU), the lane-stacked fault dict and the
+        composed fault states.  When any lane is warm (a `FaultSchedule`)
+        every lane is promoted to a schedule so all lanes share one
+        epoch-stacked structure; when every lane has one fault state it is
+        shared (stride-0 views) instead of stacked.  `force_stack` stacks
+        even then, and `epochs` forces the schedule form padded to at
+        least that many epochs, so a window session's signature never
+        depends on which lanes were packed together."""
         cfg = self.cfg
         lanes = list(lanes)
         if not lanes:
             raise ValueError("run_lanes needs >= 1 lane")
         base = self.faults
         fsets = [compose_faults(base, f) for _, _, f in lanes]
-        if any(isinstance(f, FaultSchedule) for f in fsets):
+        if (epochs is not None
+                or any(isinstance(f, FaultSchedule) for f in fsets)):
             fsets = [as_fault_schedule(f) for f in fsets]
         rates = torch.tensor([self._rate_pkt(r) for r, _, _ in lanes],
                              dtype=torch.float32, device=self.device)
         keys = torch.stack([jr.PRNGKey(int(s)) for _, s, _ in lanes])
         B = len(lanes)
-        if len(set(fsets)) == 1:
+        if len(set(fsets)) == 1 and not force_stack:
             fl = (self.lane0 if fsets[0] == base
                   else build_lane(self.net, cfg, fsets[0],
                                   device=self.device))
@@ -396,7 +556,7 @@ class BatchedSweep:
                 if f not in memo:
                     memo[f] = build_lane(self.net, cfg, f,
                                          device=self.device)
-            lane_data = stack_lanes([memo[f] for f in fsets])
+            lane_data = stack_lanes([memo[f] for f in fsets], epochs=epochs)
         return lanes, rates, keys, lane_data, fsets
 
     def _plan(self, lanes, capacity=None) -> _LanePlan:
@@ -438,6 +598,84 @@ class BatchedSweep:
         (nothing to capture on the CPU or the eager loop); hand the plan to
         `run_lanes_async(plan=...)`."""
         return self._plan(lanes)
+
+    def start_lanes(self, lanes, *, window: int, pad_to: int | None = None,
+                    force_stack: bool = False, epochs: int | None = None,
+                    restore: dict | None = None) -> "LaneSession":
+        """Open a windowed `LaneSession` over `lanes` instead of running
+        the whole cycle budget at once.
+
+        `window` is the cycles a window advances (the last one only the
+        cycles left).  `pad_to` ghost-pads the lane axis to a fixed batch
+        (rate-0 lanes, dropped from the results) so packs of one
+        signature share one graph; `force_stack` keeps the fault axis
+        stacked and `epochs` pins the schedule form padded to that many
+        epochs, for the same reason.  `restore` resumes from an earlier
+        session's `export()` (same lanes, padding and config), bit for
+        bit.  The session's graphs are made here: K = `superstep(window)`
+        and, when some window's length is not a multiple of K, a K = 1
+        graph for its tail."""
+        if window < 1:
+            raise ValueError(f"window must be >= 1 cycles, got {window}")
+        lanes, rates, keys, lane_data, fsets = self._prepare_lanes(
+            lanes, force_stack=force_stack, epochs=epochs)
+        cfg = self.cfg
+        B = len(lanes)
+        if pad_to is not None and pad_to < B:
+            raise ValueError(f"pad_to={pad_to} < {B} lanes")
+        Bp = max(B, pad_to or 0)
+        pad = Bp - B
+        if pad:
+            # ghost lanes: offered rate 0 (inject generates nothing), lane
+            # 0's key and fault data (a shared lane dict stays shared);
+            # their stats are never read back
+            rates = torch.cat([rates, rates.new_zeros(pad)])
+            keys = torch.cat([keys, keys[:1].expand(pad, 2)])
+            grow = lambda v, n: v[:1].expand((n,) + tuple(v.shape[1:]))
+            lane_data = {k: grow(v, Bp) if v.stride(0) == 0
+                         else torch.cat([v, grow(v, pad)])
+                         for k, v in lane_data.items()}
+        impl = getattr(cfg, "step_impl", "jnp")
+        gform = (grant_form(self.net, cfg) if impl in ("fused", "compact")
+                 else "two_pass")
+        step = self.step
+        if impl == "compact" and self._capacity_floor:
+            # a session cannot escalate mid-run (`finish` raises on a
+            # breach), so it starts at the highest rung this sweep has
+            # had to escalate to
+            step = self._compact_step(self._capacity_floor)
+        total = cfg.warmup + cfg.measure
+        state = make_state(self.net, cfg, self.NV, batch=(Bp,),
+                           device=self.device)
+        cycle = 0
+        if restore is not None:
+            if (_snapshot_signature(restore["state"]) !=
+                    _snapshot_signature(state)
+                    or tuple(np.shape(restore["keys"])) != tuple(keys.shape)):
+                raise ValueError(
+                    "restore snapshot does not match this session's lane "
+                    "signature (different lane count, padding, or config)")
+            cycle = int(restore["cycle"])
+            if not 0 <= cycle <= total:
+                raise ValueError(
+                    f"restore cycle {cycle} outside [0, {total}]")
+            _load_state(state, restore["state"])
+            keys = torch.as_tensor(np.asarray(restore["keys"]),
+                                   dtype=torch.int64)
+        K = 1 if self.loop == "eager" else superstep(window)
+        session = LaneSession(self, lanes, fsets, window, total, cycle,
+                              state, keys, step, K, rates, lane_data,
+                              1.0 - B / Bp, gform)
+        if self.loop == "graph":
+            # every window but the last is `window` cycles, a multiple of K
+            before, t0 = graphs.builds(), time.perf_counter()
+            tail = (total - cycle) % window % K
+            for k in ((K, 1) if K > 1 and tail else (K,)):
+                graphs.graph_for(step, k, state, rates, lane_data)
+            session.compile_count = graphs.builds() - before
+            session.compile_s = (time.perf_counter() - t0
+                                 if session.compile_count else 0.0)
+        return session
 
     def run_lanes_async(self, lanes=None, capacity=None,
                         plan: _LanePlan | None = None) -> _PendingLanes:

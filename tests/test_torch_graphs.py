@@ -6,7 +6,9 @@ A captured run equals the eager loop bit for bit for all three steps at
 K in {1, 2, 4} with cold and warm faults and the reaper; a second sweep
 captures nothing; a compact escalation re-captures once; a capture that
 fails raises and falls back to nothing; the sequential lane form and
-`Simulator.run` replay graphs too; n replays of a graph
+`Simulator.run` replay graphs too; windowed sessions replay them (a
+tail shorter than K on a K = 1 graph) and equal the eager loop, and two
+sessions of one signature interleave on one graph; n replays of a graph
 holding the netsim coop kernel equal n eager calls (the kernel keeps its
 call parity and barrier count on the device); and every netsim kernel
 counts its own launches on the device, replays included, while the
@@ -28,6 +30,7 @@ from repro_torch.core import topology as T
 from repro_torch.core import traffic
 from repro_torch.core.engine import make_state
 from repro_torch.core.engine import sweep as SW
+from repro_torch.core.engine.sweep import BatchedSweep
 from repro_torch.core.simulator import SimConfig, Simulator
 from repro_torch.kernels.netsim import cycle_core, grant
 from repro_torch.kernels.netsim import ops as netsim_ops
@@ -250,6 +253,61 @@ def test_device_counts_every_replay(cuda, wrapper, kernel):
         graph.replay()
     assert netsim_ops.device_launches()[wrapper][kernel] == d0 + 1 + n
     assert fn.launches_by_kernel[kernel] == h0 + 2
+
+
+def _drain(session):
+    while not session.done():
+        session.advance()
+    return [dataclasses.asdict(r) for r in session.finish().results]
+
+
+@pytest.mark.parametrize("k", [1, 4])
+@pytest.mark.parametrize("impl", ["jnp", "fused", "compact"])
+def test_session_windows_equal_eager_loop(cuda, net, impl, k, monkeypatch):
+    """A session's windows replayed under capture (window 48 over 180
+    cycles: the last window is 36, and at K = 4 the warm onset 61 and the
+    reset 62 fall inside supersteps) equal the eager loop's session and
+    its one-shot run."""
+    lanes = [(1.2, s, f) for f in _fault_rows(net) for s in (0, 1)]
+    eager = BatchedSweep(net, _cfg(impl), traffic.uniform(net),
+                         device=cuda, loop="eager")
+    want = [dataclasses.asdict(r) for r in eager.run_lanes(lanes).results]
+    assert _drain(eager.start_lanes(lanes, window=48)) == want
+    monkeypatch.setenv("REPRO_SUPERSTEP", str(k))
+    sw = BatchedSweep(net, _cfg(impl), traffic.uniform(net), device=cuda)
+    before = SW.compile_counter()
+    ses = sw.start_lanes(lanes, window=48, pad_to=8)
+    assert ses.superstep == k and ses.compile_count == 1
+    assert SW.compile_counter() == before + 1
+    assert _drain(ses) == want
+    assert SW.compile_counter() == before + 1
+
+
+def test_interleaved_sessions_share_one_graph(cuda, net):
+    """Two sessions of one signature, advanced in turns one window each,
+    replay one captured graph and each equal their own one-shot run; an
+    export after window 2 restores into a third that equals it too."""
+    sw = BatchedSweep(net, _cfg("fused"), traffic.uniform(net), device=cuda)
+    a = [(0.3, 0, None), (1.2, 1, None)]
+    b = [(0.8, 5, _fault_rows(net)[1]), (1.5, 6, None)]
+    want = [[dataclasses.asdict(r) for r in sw.run_lanes(x).results]
+            for x in (a, b)]
+    before = SW.compile_counter()
+    sa, sb = (sw.start_lanes(x, window=40, pad_to=4, force_stack=True)
+              for x in (a, b))
+    assert SW.compile_counter() == before + 1
+    assert (sa.compile_count, sb.compile_count) == (1, 0)
+    snap = None
+    while not (sa.done() and sb.done()):
+        sa.advance()
+        sb.advance()
+        if sb.cycle == 80:
+            snap = sb.export()
+    assert SW.compile_counter() == before + 1
+    assert _drain(sa) == want[0] and _drain(sb) == want[1]
+    sc = sw.start_lanes(b, window=40, pad_to=4, force_stack=True,
+                        restore=snap)
+    assert sc.cycle == 80 and _drain(sc) == want[1]
 
 
 def test_capture_failure_raises(cuda, net):
