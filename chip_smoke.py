@@ -124,10 +124,23 @@ Phases (any failure ends the run with a nonzero exit):
    a `SimService` with `smoke` (alice, bob), `smoke_faults` (carol) and
    `smoke_warm_faults` (dave) at window 100, killed after 2 rounds and
    resumed from its snapshot: the uninterrupted run's JSONL byte for
-   byte, the CPU run's lines after the meta line, captures == buckets.
+   byte, the CPU run's lines after the meta line, captures == buckets;
+14. the static analysis on the card: `repro_torch.analysis.check.main`
+   with `--all --lint --serve` (spec, compile, capacity and step passes,
+   the serve pass and the lint; report under `build/analysis/`) exits 0
+   with all six passes run, each pass timed; the step pass's 27 cells
+   launch `grant` (the coop kernel) on its 9 `jnp` cells and
+   `cycle_core` on its 9 `fused` (coop) and 9 `compact` (three-pass)
+   cells, once each, as the kernels count them on the card, and give the
+   rule ids and locations the same pass gives on the CPU (each cell's
+   operation count printed); each cell run again on the card and on the
+   CPU, for its one cycle and for its 16-cycle warmup + measure, gives
+   every state leaf bitwise equal; the compile pass on phase 12's spec JSON
+   predicts the captures phase 12's first run made, and the serve pass
+   at phase 13's window the captures of phase 13's service.
 
 Then one JSON line of kernel numbers (the netsim entries with the launches
-of every path, phases 4 and 12-13, in `by_path`), the card's name and
+of every path, phases 4 and 12-14, in `by_path`), the card's name and
 power limit, and the final status line.  Exits nonzero, printing no result, without a CUDA
 device or without the repository's sources.
 """
@@ -1963,7 +1976,9 @@ def phase_exp(device):
     launches = {w: {k: sum(d[w][k] for d in small.values())
                     for k in dev1[w]} for w in dev1}
     return dict(fig11=dict(cells=cells_out, memory=held, wall_s=wall,
-                           launches=dev1, second_run_launches=dev2),
+                           launches=dev1, second_run_launches=dev2,
+                           spec_path=str(spec_path),
+                           captures=sum(first["compile_counts"])),
                 small_launches=launches), spec, again
 
 
@@ -2051,7 +2066,8 @@ def phase_service(device):
     (carol) and smoke_warm_faults (dave): uninterrupted, then killed after
     2 rounds and resumed from its snapshot (the same bytes), then the
     same submissions on the CPU (the same lines after the meta line);
-    captures == distinct buckets.  Returns the launches."""
+    captures == distinct buckets.  Returns the launches and the
+    captures."""
     import shutil
     from repro_torch.core.engine import sweep as SW
     from repro_torch.exp import get_scenario
@@ -2104,7 +2120,142 @@ def phase_service(device):
           f"result records); launches on the card {dev}, killed {dev_k}, "
           f"resumed {dev_r}")
     return {w: {k: dev[w][k] + dev_k[w][k] + dev_r[w][k] for k in dev[w]}
-            for w in dev}
+            for w in dev}, captures
+
+
+# phase 14: what the step pass launches on the card, one a cell
+ANALYSIS_ARGS = ("--all", "--lint", "--serve")
+ANALYSIS_PASSES = ("spec", "compile", "capacity", "step", "serve", "lint")
+
+
+# the kernel each step's arbitration runs on the card: (wrapper, kernel)
+STEP_KERNEL = {"jnp": ("grant", "coop"), "fused": ("cycle_core", "coop"),
+               "compact": ("cycle_core", "three_pass")}
+
+
+def step_cells_match_cpu(device):
+    """Each of the step pass's 27 cells on the card against the CPU (the
+    wrappers' plain versions), every state leaf bitwise equal: the pass's
+    one-cycle superstep, and the cell's whole warmup + measure run, where
+    the arbitration sees contention.  The card's runs must launch the
+    step's kernel once a cycle, as the kernels count on the device (these
+    are comparison launches, outside the path's counts)."""
+    import torch
+    from repro_torch.analysis import steppass
+    from repro_torch.core.engine import graphs
+    from repro_torch.kernels.netsim import ops
+    t0 = time.perf_counter()
+    hops = []
+    for impl in steppass.STEP_IMPLS:
+        wrapper, kernel = STEP_KERNEL[impl]
+        for vc in steppass.VC_MODES:
+            for fk in steppass.FAULT_KINDS:
+                for cycles in (1, steppass.CELL_CYCLES):
+                    tag = f"step:{impl}/{vc}/{fk} x {cycles} cycle(s)"
+                    d0 = ops.device_launches()
+                    card = steppass.run_cell(impl, vc, fk, device,
+                                             cycles=cycles)
+                    torch.cuda.synchronize()
+                    d1 = ops.device_launches()
+                    cpu = steppass.run_cell(impl, vc, fk, "cpu",
+                                            cycles=cycles)
+                    ran = {w: {k: d1[w][k] - d0[w][k] for k in d1[w]}
+                           for w in d1}
+                    want_ran = {w: {k: cycles if (w, k) == (wrapper, kernel)
+                                    else 0 for k in ran[w]} for w in ran}
+                    check(ran == want_ran,
+                          f"{tag}: launches on the card {ran} != one of "
+                          f"{wrapper} {kernel} a cycle")
+                    want = graphs._leaves(cpu["out"])
+                    got = graphs._leaves(card["out"])
+                    check(got.keys() == want.keys(),
+                          f"{tag}: state fields on the card {sorted(got)}")
+                    for k, v in got.items():
+                        check(v.dtype == want[k].dtype
+                              and torch.equal(v.cpu(), want[k]),
+                              f"{tag}: state leaf {k} on the card != the "
+                              f"CPU's")
+                    if cycles > 1:
+                        hops.append(int(want["stats.hops"].sum()))
+    print(f"[analysis] step pass cells on the card == the CPU, every state "
+          f"leaf bitwise, at 1 and {steppass.CELL_CYCLES} cycles "
+          f"({2 * len(hops)} runs a device, {time.perf_counter() - t0:.2f} "
+          f"s); hops a {steppass.CELL_CYCLES}-cycle cell over its "
+          f"{steppass.LANES} lanes: {min(hops)}-{max(hops)}")
+
+
+def phase_analysis(device, fig11_spec, fig11_captures, serve_captures):
+    """`repro_torch.analysis.check.main --all --lint --serve` on the card:
+    exit 0 with all six passes, each timed; the step pass's netsim
+    launches as the kernels count them, one a cell on the kernel
+    `kernel_for` names for its step, and its rule ids and locations
+    equal to the CPU's; each cell's state out of the card equal to the
+    CPU's, bit for bit (`step_cells_match_cpu`); the compile pass's
+    captures for phase 12's spec and the serve pass's at phase 13's window
+    equal to what those phases captured.  Returns the launches."""
+    import re
+    from repro_torch.analysis import Report, compilepass, servepass, steppass
+    from repro_torch.analysis.check import main as check_main
+    from repro_torch.analysis.specpass import load_spec_file
+    from repro_torch.kernels.netsim import ops
+    out = ROOT / "build" / "analysis" / "report.json"
+    rc, wall, dev, host = counted(lambda: check_main(
+        list(ANALYSIS_ARGS) + ["--out", str(out)]))
+    report = json.loads(out.read_text())
+    check(rc == 0 and not report["failed"],
+          f"analysis check exited {rc}: {report['counts']}")
+    check(report["passes_run"] == list(ANALYSIS_PASSES),
+          f"analysis passes run {report['passes_run']}")
+    [timing] = [f["message"] for f in report["findings"]
+                if f["rule"] == "CHECK_TIME"]
+    print(f"[analysis] check {' '.join(ANALYSIS_ARGS)} on {device}: exit "
+          f"{rc}, {report['counts']['total']} findings, wall {wall:.2f} s; "
+          f"{timing}")
+    n = len(steppass.VC_MODES) * len(steppass.FAULT_KINDS)
+    want = {"grant": {"coop": n, "three_pass": 0},
+            "cycle_core": {"coop": n, "three_pass": n}}
+    check(dev == want and host == want,
+          f"analysis step pass launches on the card {dev}, host {host} != "
+          f"{want}")
+    card = [(f["rule"], f["severity"], f["location"])
+            for f in report["findings"] if f["pass_name"] == "step"]
+    cpu = Report()
+    steppass.run_steppass(cpu, device="cpu")
+    check(card == [(f.rule, f.severity, f.location) for f in cpu.findings],
+          "analysis: the step pass's rule ids on the card != the CPU's")
+    for impl in steppass.STEP_IMPLS:
+        counts = [int(re.match(r"(\d+) operations", f["message"]).group(1))
+                  for f in report["findings"] if f["rule"] == "STEP_TRACE"
+                  and f["location"].startswith(f"step:{impl}/")]
+        print(f"[analysis] step pass {impl}: operations per superstep on "
+              f"the card over its {len(counts)} cells {counts}")
+    print(f"[analysis] step pass launches on the card {dev} (== the "
+          f"wrappers' host counts); rule ids and locations == the CPU's "
+          f"({len(card)} findings)")
+    step_cells_match_cpu(device)
+    fig11 = Report()
+    spec = load_spec_file(fig11_spec, fig11)
+    check(spec is not None, f"analysis: {fig11_spec} does not load")
+    compilepass.check_spec(spec, f"spec:{fig11_spec}", fig11, device=device)
+    [sig] = [f.message for f in fig11.findings if f.rule == "COMPILE_SIG"]
+    predicted = int(re.search(r"makes (\d+) graph", sig).group(1))
+    check(predicted == fig11_captures,
+          f"analysis: compile pass predicts {predicted} captures for "
+          f"phase 12's fig11, which made {fig11_captures}")
+    serve = Report()
+    servepass.check_submission(servepass.SMOKE_SUBMISSION, serve,
+                               window=SERVE_WINDOW)
+    [bucket] = [f.message for f in serve.findings
+                if f.rule == "SERVE_BUCKET"]
+    served = int(re.search(r"sessions make (\d+) graph", bucket).group(1))
+    check(served == serve_captures,
+          f"analysis: serve pass predicts {served} captures, phase 13's "
+          f"service made {serve_captures}")
+    print(f"[analysis] compile pass on {fig11_spec}: {sig}")
+    print(f"[analysis] == phase 12's first run ({fig11_captures} captures); "
+          f"serve pass at window {SERVE_WINDOW}: {served} graphs == phase "
+          f"13's service captures ({serve_captures})")
+    return dev
 
 
 def kernel_entry(name, source, replaces, launches, err, t):
@@ -2184,7 +2335,10 @@ def main(argv=None):
     exp_t, fig11, fig11_grids = phase_exp(device)
     windows_t = phase_windows(device, fig11, fig11_grids)
     del fig11_grids
-    serve_launches = phase_service(device)
+    serve_launches, serve_captures = phase_service(device)
+    analysis_launches = phase_analysis(
+        device, exp_t["fig11"]["spec_path"], exp_t["fig11"]["captures"],
+        serve_captures)
     # the netsim kernels: the coop kernel's numbers, the three-pass
     # kernel's time on the same inputs beside them
     grant_entry = kernel_entry(
@@ -2217,15 +2371,15 @@ def main(argv=None):
     cycle_entry["by_step"] = {impl: dict(cycle_t[impl], **cycle_runs[impl],
                                          loops=graph_t[impl])
                               for impl in FAST_STEPS}
-    # the exp and serve paths' launches (phases 12-13), each counted on the
-    # card over its own run, beside the main path's
+    # the exp, serve and analysis paths' launches (phases 12-14), each
+    # counted on the card over its own run, beside the main path's
     paths = dict(exp_fig11=exp_t["fig11"]["launches"],
                  exp_fig11_again=exp_t["fig11"]["second_run_launches"],
                  exp_small=exp_t["small_launches"],
                  **{f"windowed_K{K}": windows_t[f"K{K}"]["launches"]
                     for K in WINDOW_K},
                  windowed_restored=windows_t["launches_restored"],
-                 serve=serve_launches)
+                 serve=serve_launches, analysis=analysis_launches)
     for entry, wrapper in ((grant_entry, "grant"),
                            (cycle_entry, "cycle_core")):
         entry["by_path"] = {"main": dict(

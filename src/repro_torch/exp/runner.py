@@ -8,9 +8,16 @@ passes: first every cell is prepared and its CUDA graph captured
 (`BatchedSweep.warm_compile`), then each cell in turn is dispatched
 (`run_lanes_async`) and materialised, so a cell's `wall_s` is its own run
 (no capture, no other cell's work; the reference dispatches every cell
-before it materialises any, to overlap cells on several devices).  Cells that share an identical step (same topology,
-routing, traffic, cycle budget and device) reuse one `BatchedSweep`
-through a process-wide cache, so re-running a spec captures nothing.
+before it materialises any, to overlap cells on several devices).  The
+two passes go over chunks of at most `graphs.GRAPHS_KEPT` cells, so no
+cell's graph is evicted from the graph cache before it runs (which would
+capture it twice) and the graphs held between the passes are bounded by
+the cache's size, not by the spec's cells.  Cells that share an
+identical step (same topology, routing, traffic, cycle budget and
+device) reuse one `BatchedSweep` through a process-wide cache, so
+re-running a spec captures nothing while its cells fit
+`graphs.GRAPHS_KEPT`; a spec with more cells than that captures once a
+cell on each run.
 
 The runner runs on one device (`device=None` resolves to CUDA, or raises
 without it; tests pass ``device="cpu"``): every grid's `placement` is
@@ -27,6 +34,7 @@ from typing import NamedTuple
 
 import numpy as np
 
+from ..core.engine import graphs
 from ..core.engine.sweep import BatchedSweep, SweepResult
 from ..core.simulator import SimConfig, SimResult
 from ..core.topology import Network, final_faults
@@ -224,14 +232,24 @@ def run_experiment(spec: ExperimentSpec, verbose: bool = False,
     """Run every grid of `spec` on `device`; each grid is one batched
     dispatch (at most one capture a grid, none on reuse)."""
     dev = resolve_device(device)
+    result = ExperimentResult(spec, device=str(dev))
+    all_cells = list(cells(spec))
+    for lo in range(0, len(all_cells), graphs.GRAPHS_KEPT):
+        _run_chunk(spec, all_cells[lo:lo + graphs.GRAPHS_KEPT], dev,
+                   result, verbose)
+    return result
+
+
+def _run_chunk(spec, chunk, dev, result, verbose) -> None:
+    """Both passes over at most `graphs.GRAPHS_KEPT` cells, their grids
+    appended to `result`."""
     axes = spec.axes
     rates, seeds = list(axes.rates), list(axes.seeds)
     R, S, F = len(rates), len(seeds), len(axes.faults)
-    result = ExperimentResult(spec, device=str(dev))
-    # pass 1: lower every cell's grid and capture its graph, before any
-    # cell runs, so each cell's wall_s is its run alone
+    # pass 1: lower each cell's grid and capture its graph, before any
+    # cell of the chunk runs, so each cell's wall_s is its run alone
     plans = []
-    for cell in cells(spec):
+    for cell in chunk:
         sweep = cell_sweep(cell, axes, dev)
         frows = _fault_rows(spec, cell.topology, cell.net,
                             cell.routing.vc_mode)
@@ -275,4 +293,3 @@ def run_experiment(spec: ExperimentSpec, verbose: bool = False,
                   f"{run.wall_s:.1f}s (compiles={run.compile_count}, "
                   f"compile_s={run.compile_s:.1f})",
                   file=sys.stderr, flush=True)
-    return result
