@@ -69,7 +69,8 @@ Phases (any failure ends the run with a nonzero exit):
    inputs, the plain version and the SDPA call; the recurrentgemma-2b
    prefill's local attention (B = 4, S = 4096, H = 10, KV = 1, hd = 256,
    window 2048, bf16) is checked and timed the same way, beside SDPA with
-   the window as a mask;
+   the window as a mask, and so is deepseek-moe-16b's (B = 4, S = 2048,
+   H = KV = 16, hd = 128);
 8. the SSD scan kernels against their plain version `ssd_ref` on the
    card, each case on the kernel the (dtype, P, N) rule names (bf16 on the
    tensor-core kernel, fp32 on the FMA kernel): the shapes of the
@@ -137,16 +138,36 @@ Phases (any failure ends the run with a nonzero exit):
    CPU, for its one cycle and for its 16-cycle warmup + measure, gives
    every state leaf bitwise equal; the compile pass on phase 12's spec JSON
    predicts the captures phase 12's first run made, and the serve pass
-   at phase 13's window the captures of phase 13's service.
+   at phase 13's window the captures of phase 13's service;
+15. training on the card: the LM kernels' wrappers refuse autograd (a
+   forward-only kernel's output has no grad_fn) and run under no_grad;
+   (a) 3 train steps (fp32, chunked attention, remat, microbatch 2, weight
+   decay 0.1) of the smoke minicpm-2b, deepseek-moe-16b (bf16 and int8
+   dispatch), mamba2-780m and recurrentgemma-2b on the card and on the CPU
+   from the same weights: metrics at 1e-5, parameters and moments as
+   `phase_train_parity` states; (b) the reference's failure-injection run
+   on the card (bf16 smoke, failures at steps 6 and 13): two restarts,
+   step 20, then a snapshot restored bit for bit, bf16 leaves included;
+   (c) minicpm-2b at full width through `repro_torch.launch.train.main`
+   (batch 8, seq 128, 6 steps, chunked attention with remat, the WSD
+   schedule): finite losses, the last nll below the first; step time,
+   tokens/s, peak memory, and one step under torch.profiler;
+16. deepseek-moe-16b served at full width as in phase 10 (prompt 2,048;
+   28 flash_attention launches a prefill, all on the tensor-core kernel),
+   the share of (token, slot) pairs the capacity dropped in a prefill,
+   and the logits check run with no pair dropped (C = T), since the
+   capacity depends on the token count of each call.
 
 Then one JSON line of kernel numbers (the netsim entries with the launches
-of every path, phases 4 and 12-14, in `by_path`), the card's name and
-power limit, and the final status line.  Exits nonzero, printing no result, without a CUDA
+of every path, phases 4 and 12-14, in `by_path`; the flash entry's
+launches by served model), the card's name and power limit, and the final
+status line.  Exits nonzero, printing no result, without a CUDA
 device or without the repository's sources.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import subprocess
@@ -1206,6 +1227,8 @@ def phase_graphs(net, device):
 FA_LLAMA = (SERVE_BATCH, 2048, 2048, 24, 8, 128)
 FA_GEMMA = (SERVE_BATCH, 4096, 4096, 10, 1, 256)
 FA_GEMMA_WINDOW = 2048
+# deepseek-moe-16b's prefill (phase 16): 16 heads of 128, MHA
+FA_DEEPSEEK = (SERVE_BATCH, 2048, 2048, 16, 16, 128)
 
 
 def _fa_cases():
@@ -1244,7 +1267,9 @@ def _fa_cases():
     cases += [("serving prefill", FA_LLAMA, dt, dict(causal=True))
               for dt in ("float32", "bfloat16")]
     cases += [("recurrentgemma prefill", FA_GEMMA, "bfloat16",
-               dict(causal=True, window=FA_GEMMA_WINDOW))]
+               dict(causal=True, window=FA_GEMMA_WINDOW)),
+              ("deepseek prefill", FA_DEEPSEEK, "bfloat16",
+               dict(causal=True))]
     return cases
 
 
@@ -1267,7 +1292,7 @@ def _row_rel(got, want):
 
 def phase_flash_attention(device):
     """The kernel against `attention_ref` on the card for every case;
-    returns (max abs error, {label: bf16 inputs} of the two served
+    returns (max abs error, {label: bf16 inputs} of the three served
     prefills' shapes).  The error is relative per output row (one query
     position of one head): each row's largest |kernel - plain| over that
     row's largest |plain|, so a late causal row, an average of thousands
@@ -1297,7 +1322,8 @@ def phase_flash_attention(device):
         print(f"[flash] {label} {shape} {dtype} {kw}: {kernel} kernel == "
               f"attention_ref (max abs {diff:.3e}, relative per row "
               f"{rel:.3e})")
-        if shape in (FA_LLAMA, FA_GEMMA) and dtype == "bfloat16":
+        if shape in (FA_LLAMA, FA_GEMMA, FA_DEEPSEEK) \
+                and dtype == "bfloat16":
             timed[label] = (q, k, v, kw)
         del q, k, v
     return worst, timed
@@ -1713,17 +1739,176 @@ def phase_serve(device, arch, S, profile=False):
           f"{spread(decode_ms)}, {B * 1e3 / decode:.1f} tokens/s at the "
           f"median; launches {launches}; max_memory_allocated {peak} bytes")
     print(f"[serve] {arch} tokens[0]: {out[0].tolist()}")
-    check_against_naive(model, cfg, tokens, device)
     if profile:
         phase_serve_profile(model, cfg, tokens, device)
+    if cfg.moe is not None:
+        launches["moe_dropped_share"] = check_moe_against_naive(
+            model, cfg, tokens, device)
+    else:
+        check_against_naive(model, cfg, tokens, device)
     if cfg.ssm is not None or cfg.rglru is not None:
         # the scans' algorithm and the state handoff, free of bf16 rounding
         model.float()
         check_against_naive(model, dataclasses.replace(cfg, dtype="float32"),
                             tokens, device)
+    if cfg.moe is not None:
+        # the MoE path, its drops and the caches free of bf16 rounding, at
+        # full depth (16.4 B parameters: 65.4 GB in fp32); the decode check
+        # on one row (with no drops, 4.4 GB a buffer at B 4 would not fit)
+        torch.cuda.empty_cache()
+        model.float()
+        torch.cuda.reset_peak_memory_stats()
+        check_moe_against_naive(model, dataclasses.replace(
+            cfg, dtype="float32"), tokens, device, decode_rows=1)
+        print(f"[serve] {arch} float32 check: max_memory_allocated "
+              f"{torch.cuda.max_memory_allocated()} bytes")
     del model
     torch.cuda.empty_cache()
     return launches
+
+
+def no_drop(cfg):
+    """`cfg` with an MoE capacity factor of E / K, which makes the capacity
+    T: no (token, slot) pair is ever dropped."""
+    moe = cfg.moe
+    return dataclasses.replace(cfg, moe=dataclasses.replace(
+        moe, capacity_factor=moe.num_experts / moe.top_k))
+
+
+@contextlib.contextmanager
+def moe_routing(replay=None):
+    """Within it, every router call of the port's MoE layers appends its
+    top-k picks [T, K] and kept mask [T*K] to the yielded list, in call
+    order.  With `replay` (such picks, one a call in the same order), each
+    call takes those picks instead of its own: its gates are still its own
+    probabilities at them, and `route` still counts positions and drops
+    from them with its own capacity."""
+    from repro_torch.models import moe
+    route, top_k = moe.route, moe.top_k
+    record = []
+
+    def recording_route(p, xt, mcfg):
+        out = route(p, xt, mcfg)
+        record.append((out[1], out[3]))
+        return out
+
+    def pinned_top_k(probs, k):
+        idx = replay[len(record)]
+        check(tuple(idx.shape) == (*probs.shape[:-1], k),
+              f"replayed picks {tuple(idx.shape)} for probs "
+              f"{tuple(probs.shape)}, k {k}")
+        return probs.gather(-1, idx), idx
+    moe.route = recording_route
+    if replay is not None:
+        moe.top_k = pinned_top_k
+    try:
+        yield record
+    finally:
+        moe.route, moe.top_k = route, top_k
+
+
+def check_moe_against_naive(model, cfg, tokens, device, gen=SERVE_GEN,
+                            decode_rows=None):
+    """An MoE model's served path against a naive full forward, last
+    position, each run twice: with the served path's expert picks
+    replayed in the naive forward (held as below), and free (reported
+    with the token-layers whose expert set changed: in bf16 the two
+    forwards' roundings flip routers near a tie, each flip moving a token
+    by a whole expert).  The prefill runs at the model's capacity against
+    a naive forward over the same S tokens, so both have the same T and
+    capacity and drop the same pairs (checked); the decode step's forward
+    has S + 1 tokens and so another capacity, so it runs with no drops
+    (`no_drop`) on both sides.  fp32: within 1e-3.  bf16: within 2e-2, or
+    twice the naive forward's own move when only its attention's order of
+    sums changes (chunked attention, the same picks replayed) if that is
+    larger, as for mamba2 in `check_against_naive`: a random-weight
+    deepseek-moe-16b amplifies its bf16 roundings over 28 layers.  With
+    `decode_rows`, the decode check runs on that many rows of the batch:
+    with no drops an expert's buffer holds every token, [E + 1, T, D].
+    Returns the share of (token, slot) pairs the served prefill
+    dropped."""
+    import torch
+    from repro_torch.models import transformer as TF
+    from repro_torch.models.moe import capacity
+    arch, B, S = cfg.name, *tokens.shape
+    bf16 = cfg.dtype != "float32"
+
+    def last(c, toks, replay=None, attn="naive"):
+        with moe_routing(replay) as rt:
+            logits = TF.forward(model, c, {"tokens": toks}, "train",
+                                attn_impl=attn)[0]
+        return logits[:, -1].float(), rt
+
+    def held(what, served, c, toks, picks):
+        check(bool(torch.isfinite(served).all()),
+              f"{arch} {cfg.dtype} {what}: non-finite logits")
+        pinned, _ = last(c, toks, picks)
+        free, free_rt = last(c, toks)
+        changed = sum(
+            int((x.sort(-1).values != y.sort(-1).values).any(-1).sum())
+            for x, (y, _) in zip(picks, free_rt))
+        rel, free_rel = _rel(served, pinned), _rel(served, free)
+        bar, note = 1e-3, ""
+        if bf16:
+            spread = _rel(last(c, toks, picks, "chunked")[0], pinned)
+            bar = max(2e-2, 2 * spread)
+            note = (f" (the naive forward with chunked attention and the "
+                    f"same picks: {spread:.3e}; within 2e-2: {rel < 2e-2})")
+        check(rel < bar, f"{arch} {cfg.dtype} {what} logits vs naive full "
+                         f"forward with the served picks: relative {rel} "
+                         f">= {bar}")
+        print(f"[serve] {arch} {cfg.dtype} {what} logits vs a naive full "
+              f"forward, last position: with the served expert picks "
+              f"relative {rel:.3e}{note}, bar {bar:.3e}; free picks "
+              f"{free_rel:.3e} ({changed} token-layers picked another "
+              f"expert set)")
+
+    with torch.inference_mode():
+        prompt = torch.as_tensor(tokens, dtype=torch.int32, device=device)
+        with moe_routing() as served_rt:
+            logits = TF.forward(model, cfg, {"tokens": prompt}, "prefill",
+                                cache=TF.init_cache(cfg, B, S + gen,
+                                                    device=device),
+                                attn_impl="kernel")[0]
+        served = logits[:, -1].float()
+        del logits
+        picks = [i for i, _ in served_rt]
+        _, pinned_rt = last(cfg, prompt, picks)
+        check(all(torch.equal(a, b) for (_, a), (_, b)
+                  in zip(served_rt, pinned_rt)),
+              f"{arch}: the naive forward with the served picks dropped "
+              f"other pairs")
+        del pinned_rt
+        held("prefill (kernel)", served, cfg, prompt, picks)
+        routed = sum(k.numel() for _, k in served_rt)
+        dropped = sum(int((~k).sum()) for _, k in served_rt)
+
+        nd = no_drop(cfg)
+        prompt = prompt[:decode_rows]
+        B = prompt.shape[0]
+        with moe_routing() as rt:
+            cache = TF.init_cache(nd, B, S + gen, device=device)
+            logits, cache, _ = TF.forward(model, nd, {"tokens": prompt},
+                                          "prefill", cache=cache,
+                                          attn_impl="kernel")
+            nxt = torch.argmax(logits[:, -1:], dim=-1).int()
+            del logits
+            logits, cache, _ = TF.forward(model, nd, {"tokens": nxt},
+                                          "decode", cache=cache)
+        served = logits[:, -1].float()
+        del logits, cache
+        L, K = len(rt) // 2, cfg.moe.top_k
+        picks = [torch.cat([rt[i][0].view(B, S, K),
+                            rt[L + i][0].view(B, 1, K)], 1).view(-1, K)
+                 for i in range(L)]
+        held("decode step", served, nd, torch.cat([prompt, nxt], 1), picks)
+    moe, B = cfg.moe, tokens.shape[0]
+    print(f"[serve] {arch} {cfg.dtype} prefill: {dropped} of {routed} "
+          f"(token, slot) pairs dropped by the capacity "
+          f"({dropped / routed:.4%}; {len(served_rt)} MoE layers, "
+          f"{capacity(B * S, moe)} slots an expert for "
+          f"{B * S * moe.top_k / moe.num_experts:.0f} pairs on average)")
+    return dropped / routed
 
 
 def served_and_naive(model, cfg, tokens, device, gen=SERVE_GEN):
@@ -2258,6 +2443,329 @@ def phase_analysis(device, fig11_spec, fig11_captures, serve_captures):
     return dev
 
 
+# phase 15: training on the card.  (a) smoke configs in fp32, card against
+# CPU from the same weights: (arch, MoE dispatch)
+TRAIN_SMOKE = (("minicpm-2b", "bf16"), ("deepseek-moe-16b", "bf16"),
+               ("deepseek-moe-16b", "int8"), ("mamba2-780m", "bf16"),
+               ("recurrentgemma-2b", "bf16"))
+TRAIN_STEPS, TRAIN_LR = 3, 1e-3
+# a parameter element off by more than this after the steps is counted; at
+# most TRAIN_OFF_SHARE of a model's may be (see `phase_train_parity`)
+TRAIN_ABS, TRAIN_OFF_SHARE = 1e-5, 1e-3
+# (c) the launcher's own example at full width
+TRAIN_FULL = ("--arch", "minicpm-2b", "--steps", "6", "--batch", "8",
+              "--seq", "128", "--lr", "3e-4", "--ckpt-every", "0")
+# steps 1-2 against the fp32 plain path, relative: bf16 logits of ~200
+# carry rounding steps of 0.5-1, ~1e-3 of the loss; the gradient sums
+# bf16 products over 40 layers recomputed under remat
+TRAIN_FULL_LOSS, TRAIN_FULL_NORM = 1e-2, 5e-2
+# the same run with a tenth of the step (see `phase_train_full`)
+TRAIN_FULL_LOW_LR = 3e-5
+# phase 16: MoE serving at full width
+MOE_SERVE = ("deepseek-moe-16b", 2048)
+
+
+def _smoke_train_cfg(arch, dispatch):
+    from repro_torch.configs.registry import get_config
+    cfg = dataclasses.replace(get_config(arch + "-smoke"), dtype="float32")
+    if cfg.moe is not None:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, dispatch=dispatch))
+    return cfg
+
+
+def phase_kernels_refuse_autograd(device):
+    """Each LM kernel's wrapper raises on CUDA where autograd would record
+    the launch (its output has no grad_fn), and runs under no_grad."""
+    import torch
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.rglru import ops as rglru_ops
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    g = torch.Generator(device=device).manual_seed(5)
+
+    def t(*shape, dtype=torch.float32):
+        return torch.randn(shape, generator=g, device=device).to(dtype)
+    calls = {
+        "flash_attention": (fa_ops.flash_attention,
+                            [t(1, 64, 2, 64, dtype=torch.bfloat16)
+                             for _ in range(3)]),
+        "ssd_scan": (ssd_ops.ssd_scan,
+                     [t(1, 64, 2, 16), t(1, 64, 2).abs(), t(2).abs(),
+                      t(1, 64, 16), t(1, 64, 16)]),
+        "rglru": (rglru_ops.rglru_scan, [t(1, 64, 32).sigmoid(),
+                                         t(1, 64, 32)])}
+    for name, (fn, args) in calls.items():
+        args[0].requires_grad_()
+        try:
+            fn(*args)
+        except RuntimeError as e:
+            check("no backward" in str(e), f"{name}: {e}")
+        else:
+            raise RuntimeError(f"check failed: {name} launched under "
+                               f"autograd")
+        with torch.no_grad():
+            check(bool(torch.isfinite(fn(*args)).all()),
+                  f"{name} under no_grad")
+    torch.cuda.synchronize()
+    print(f"[train] on CUDA {', '.join(calls)} raise where autograd would "
+          f"record them (forward-only kernels) and run under no_grad")
+
+
+def phase_train_parity(device):
+    """15(a): `TRAIN_STEPS` train steps of each `TRAIN_SMOKE` config in
+    fp32 (chunked attention, remat, microbatch 2, weight decay 0.1) on the
+    card and on the CPU from the same weights and batches.  Metrics at
+    1e-5 relative.  Parameters: every element within `TRAIN_ABS` but at
+    most `TRAIN_OFF_SHARE` of a model's, and those within Adam's largest
+    move over the steps (2 x the sum of the lrs): where a gradient element
+    is at the level of rounding noise, below Adam's eps, AdamW divides it
+    by itself and the two runs' noise moves the element by up to lr a
+    step (the port against the reference on the CPU shows the same, at
+    one element of 4,096 in recurrentgemma's first layer).  m and v at
+    1e-3 of each leaf's largest value.  Returns the largest differences."""
+    import copy
+    import torch
+    from repro_torch.data.pipeline import SyntheticTokens
+    from repro_torch.models import transformer as TF
+    from repro_torch.optim.optimizer import OptConfig, init_opt_state
+    from repro_torch.runtime.trainer import TrainSetup, make_train_step
+    worst = dict(metric=0.0, param=0.0, off=0.0, moment=0.0)
+    for arch, dispatch in TRAIN_SMOKE:
+        cfg = _smoke_train_cfg(arch, dispatch)
+        setup = TrainSetup(model=cfg, opt=OptConfig(
+            lr=TRAIN_LR, warmup_steps=1, total_steps=TRAIN_STEPS,
+            weight_decay=0.1, schedule=cfg.schedule), attn_impl="chunked",
+            remat=True, microbatch=2)
+        cpu = TF.init_params(cfg, torch.Generator().manual_seed(2),
+                             device="cpu")
+        runs = []
+        for model in (copy.deepcopy(cpu).to(device), cpu):
+            step, opt = make_train_step(setup), init_opt_state(model)
+            data = SyntheticTokens(cfg.vocab_size, 4, 64, seed=3)
+            hist = []
+            for _ in range(TRAIN_STEPS):
+                model, opt, m = step(model, opt, next(data))
+                hist.append({k: float(v) for k, v in m.items()})
+            runs.append((model, opt, hist))
+        (card, copt, chist), (cpu, popt, phist) = runs
+        metric = max(abs(a[k] - b[k]) / max(abs(b[k]), 1e-30)
+                     for a, b in zip(chist, phist) for k in b)
+        check(metric < 1e-5, f"train {cfg.name} {dispatch}: metrics card vs "
+                             f"CPU relative {metric}")
+        move = 2 * sum(h["lr"] for h in phist)
+        total = off = 0
+        param = moment = 0.0
+        for name, p in cpu.named_parameters():
+            d = (dict(card.named_parameters())[name].detach().cpu()
+                 - p.detach()).abs()
+            total += d.numel()
+            off += int((d > TRAIN_ABS).sum())
+            param = max(param, float(d.max()))
+            for k in ("m", "v"):
+                ref = popt[k][name]
+                moment = max(moment, float(
+                    (copt[k][name].cpu() - ref).abs().max()
+                    / ref.abs().max().clamp_min(1e-30)))
+        check(off <= TRAIN_OFF_SHARE * total and param <= move,
+              f"train {cfg.name} {dispatch}: {off} of {total} parameter "
+              f"elements off by > {TRAIN_ABS}, largest {param} (Adam's "
+              f"largest move {move})")
+        check(moment < 1e-3, f"train {cfg.name} {dispatch}: m, v card vs "
+                             f"CPU {moment}")
+        print(f"[train] {cfg.name} fp32 dispatch {dispatch}: "
+              f"{TRAIN_STEPS} steps card == CPU: metrics relative "
+              f"{metric:.3e}; parameters largest {param:.3e}, {off} of "
+              f"{total} elements above {TRAIN_ABS}; m, v {moment:.3e}; "
+              f"losses {[round(h['loss'], 6) for h in chist]}")
+        for k, v in (("metric", metric), ("param", param),
+                     ("off", off / total), ("moment", moment)):
+            worst[k] = max(worst[k], v)
+    return worst
+
+
+def phase_train_faults(device):
+    """15(b): the reference's failure-injection run on the card (bf16
+    minicpm-2b smoke, failures at steps 6 and 13, a snapshot every 4
+    steps, 20 steps): two restarts logged; then a snapshot at step 20,
+    three more steps and its restore, every param (bf16) and optimizer
+    leaf bit for bit the saved one."""
+    import shutil
+    import torch
+    from repro_torch.checkpoint.checkpointing import Checkpointer
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.pipeline import SyntheticTokens
+    from repro_torch.optim.optimizer import OptConfig
+    from repro_torch.runtime.fault_tolerance import (FailureInjector,
+                                                     FaultTolerantLoop)
+    from repro_torch.runtime.trainer import Trainer, TrainSetup
+    cfg = get_config("minicpm-2b-smoke")
+    setup = TrainSetup(model=cfg, opt=OptConfig(
+        lr=2e-3, warmup_steps=2, total_steps=40, schedule="wsd",
+        weight_decay=0.0), attn_impl="naive", remat=False)
+    ckdir = ROOT / "build" / "train" / "faults"
+    shutil.rmtree(ckdir, ignore_errors=True)
+    tr = Trainer(setup, SyntheticTokens(cfg.vocab_size, 4, 32, seed=3),
+                 checkpointer=Checkpointer(str(ckdir), keep=2),
+                 ckpt_every=4, device=device)
+    loop = FaultTolerantLoop(tr, FailureInjector(fail_at=(6, 13)))
+    hist = loop.run(20)
+    events = [e["event"] for e in loop.log]
+    check(tr.step == 20 and loop.restarts == 2
+          and events.count("failure") == 2 and events.count("restart") == 2,
+          f"fault-tolerant loop: step {tr.step}, log {loop.log}")
+    check(all(np.isfinite(h["nll"]) for h in hist), "non-finite nll")
+    tr.save()
+    saved = {n: p.detach().clone() for n, p in tr.model.named_parameters()}
+    opt = {k: {n: t.clone() for n, t in tr.opt_state[k].items()}
+           for k in ("master", "m", "v")}
+    tr.run(3)
+    check(tr.restore(20) == 20, "restore did not return step 20")
+
+    def bits(t):
+        return t.detach().view(torch.int16) if t.dtype == torch.bfloat16 \
+            else t.detach()
+    same = all(torch.equal(bits(p), bits(saved[n]))
+               for n, p in tr.model.named_parameters())
+    same &= all(torch.equal(tr.opt_state[k][n], t)
+                for k, leaves in opt.items() for n, t in leaves.items())
+    check(same, "restored training state != the saved one")
+    dtypes = sorted({str(p.dtype) for p in saved.values()})
+    print(f"[train] {cfg.name} {cfg.dtype} on the card, failures at steps 6 "
+          f"and 13: {loop.restarts} restarts, log {loop.log}; step 20 "
+          f"reached, nll {hist[-1]['nll']:.4f}; a snapshot at step 20 "
+          f"restored after 3 more steps: every param ({', '.join(dtypes)}) "
+          f"and optimizer leaf bit for bit")
+    shutil.rmtree(ckdir, ignore_errors=True)
+
+
+def train_full_reference(cfg, B, S, opt, device):
+    """The launcher's first two steps recomputed on the plain path: the
+    trainer's weights (`init_params`, seed 0, in the model's dtype) held in
+    fp32, the launcher's batches, naive attention, no remat.  Step 1's
+    loss, nll and grad_norm; then AdamW's first step in closed form,
+    written apart from `adamw_update` (after one step m / (1 - b1) is the
+    clipped gradient g and v / (1 - b2) is g^2, so each element moves by
+    lr * (g / (|g| + eps) + decay * w)), and step 2's nll on the next
+    batch.  Returns {"loss", "nll", "grad_norm", "nll_2"}."""
+    import torch
+    from repro_torch.data.pipeline import SyntheticTokens
+    from repro_torch.models import transformer as TF
+    from repro_torch.optim.optimizer import decays
+    data = SyntheticTokens(cfg.vocab_size, B, S)
+
+    def batch():
+        return {k: torch.as_tensor(v, device=device)
+                for k, v in next(data).items()}
+    fp32 = dataclasses.replace(cfg, dtype="float32")
+    model = TF.init_params(cfg, torch.Generator(device=device).manual_seed(0),
+                           device=device).float()
+    params = dict(model.named_parameters())
+    loss, met = TF.lm_loss(model, fp32, batch(), attn_impl="naive",
+                           remat=False)
+    grads = torch.autograd.grad(loss, list(params.values()))
+    out = {"loss": float(loss.detach()), "nll": float(met["nll"].detach())}
+    del loss, met
+    with torch.no_grad():
+        norm = torch.sqrt(sum(torch.sum(g.double() ** 2) for g in grads))
+        out["grad_norm"] = float(norm)
+        scale = min(1.0, opt.clip_norm / max(float(norm), 1e-9))
+        for (name, p), g in zip(params.items(), grads):
+            g = g * scale
+            p -= opt.lr * (g / (g.abs() + opt.eps)
+                           + opt.weight_decay * decays(name, p) * p)
+        del grads
+        _, met = TF.lm_loss(model, fp32, batch(), attn_impl="naive",
+                            remat=False)
+        out["nll_2"] = float(met["nll"])
+    del model, params
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_train_full(device):
+    """15(c): minicpm-2b at full width through `launch.train.main`
+    (`TRAIN_FULL`: bf16, chunked attention with remat, the WSD schedule at
+    lr 3e-4 from step 1): finite losses; steps 1 and 2 held to
+    `train_full_reference` on the same weights and batches (step 1's loss
+    and nll within TRAIN_FULL_LOSS and its grad_norm within
+    TRAIN_FULL_NORM, relative; step 2's nll, after the first update,
+    within TRAIN_FULL_LOSS); the last step's nll below the first's.  Step
+    time (median of the steps after the first), tokens/s, peak memory;
+    then one more step under torch.profiler; then the same run at
+    TRAIN_FULL_LOW_LR, whose nll by step is printed beside the first's."""
+    import statistics
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.pipeline import SyntheticTokens
+    from repro_torch.launch import train as launch_train
+    from repro_torch.optim.optimizer import OptConfig
+    arg = dict(zip(TRAIN_FULL[::2], TRAIN_FULL[1::2]))
+    B, S = int(arg["--batch"]), int(arg["--seq"])
+    opt = OptConfig(lr=float(arg["--lr"]))
+    ref = train_full_reference(get_config(arg["--arch"]), B, S, opt, device)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    argv = list(TRAIN_FULL) + ["--ckpt-dir", str(ROOT / "build" / "train" /
+                                                 "full")]
+    t0 = time.perf_counter()
+    tr = launch_train.main(argv, device=device)
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    hist, cfg = tr.history, tr.setup.model
+    check(all(np.isfinite(h[k]) for h in hist for k in h),
+          f"train {cfg.name}: non-finite metrics {hist}")
+    check(hist[0]["lr"] == np.float32(opt.lr),
+          f"train {cfg.name}: step 1's lr {hist[0]['lr']}, want {opt.lr}")
+    got = dict(hist[0], nll_2=hist[1]["nll"])
+    rel = {k: abs(got[k] - v) / abs(v) for k, v in ref.items()}
+    for k, r in rel.items():
+        bar = TRAIN_FULL_NORM if k == "grad_norm" else TRAIN_FULL_LOSS
+        check(r < bar, f"train {cfg.name}: {k} {got[k]} against the fp32 "
+                       f"plain path's {ref[k]}: relative {r} >= {bar}")
+    check(hist[-1]["nll"] < hist[0]["nll"],
+          f"train {cfg.name}: nll {hist[0]['nll']} -> {hist[-1]['nll']}")
+    step_s = statistics.median(tr.step_times[1:])
+    lrs = ", ".join(f"{h['lr']:.3e}" for h in hist)
+    print(f"[train] {cfg.name} steps 1-2 against the fp32 plain path "
+          f"(naive attention, no remat, AdamW's first step in closed form) "
+          f"on the same weights and batches: "
+          + ", ".join(f"{k} {got[k]:.6g} / {v:.6g} ({rel[k]:.3e})"
+                      for k, v in ref.items())
+          + f"; bars {TRAIN_FULL_LOSS:.0e} (losses), {TRAIN_FULL_NORM:.0e} "
+            f"(grad_norm)")
+    print(f"[train] {cfg.name} full width ({cfg.num_params()} parameters, "
+          f"{cfg.dtype}, chunked attention, remat), batch {B}, seq {S}, "
+          f"{len(hist)} steps in {wall:.2f} s (init included): nll "
+          f"{[round(h['nll'], 4) for h in hist]}, lr [{lrs}]; step ms "
+          f"{[round(t * 1e3, 2) for t in tr.step_times]}, median after the "
+          f"first {step_s * 1e3:.2f} ms, {B * S / step_s:.1f} tokens/s; "
+          f"max_memory_allocated {peak} bytes")
+    nll = [round(h["nll"], 4) for h in hist]
+    tr.data = SyntheticTokens(cfg.vocab_size, B, S)
+    tr.data.restore({"step": tr.step})
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        tr.run(1)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    profile_report(prof, wall, f"{cfg.name} train step (batch {B}, seq {S})",
+                   1, "step", ())
+    del tr
+    torch.cuda.empty_cache()
+    low = launch_train.main(argv + ["--lr", str(TRAIN_FULL_LOW_LR)],
+                            device=device)
+    print(f"[train] {cfg.name} the same run at lr {TRAIN_FULL_LOW_LR}: nll "
+          f"{[round(h['nll'], 4) for h in low.history]} (at lr "
+          f"{opt.lr}: {nll})")
+    del low
+    torch.cuda.empty_cache()
+    return dict(step_ms=step_s * 1e3, tokens_per_s=B * S / step_s,
+                peak=peak, against_fp32=rel)
+
+
 def kernel_entry(name, source, replaces, launches, err, t):
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches, "max_abs_err": err,
@@ -2318,7 +2826,8 @@ def main(argv=None):
     graph_t = phase_graphs(net, device)
     fa_err, fa_timed = phase_flash_attention(device)
     fa_t = {label: phase_flash_timing(*fa_timed[label])
-            for label in ("serving prefill", "recurrentgemma prefill")}
+            for label in ("serving prefill", "recurrentgemma prefill",
+                          "deepseek prefill")}
     del fa_timed
     ssd_err, ssd_args = phase_ssd_scan(device)
     ssd_t = phase_ssd_timing(ssd_args)
@@ -2339,6 +2848,13 @@ def main(argv=None):
     analysis_launches = phase_analysis(
         device, exp_t["fig11"]["spec_path"], exp_t["fig11"]["captures"],
         serve_captures)
+    torch.cuda.empty_cache()
+    phase_kernels_refuse_autograd(device)
+    train_err = phase_train_parity(device)
+    phase_train_faults(device)
+    train_full = phase_train_full(device)
+    arch, S = MOE_SERVE
+    served[arch] = phase_serve(device, arch, S, profile=args.profile)
     # the netsim kernels: the coop kernel's numbers, the three-pass
     # kernel's time on the same inputs beside them
     grant_entry = kernel_entry(
@@ -2390,7 +2906,8 @@ def main(argv=None):
                        launches_by_kernel=n[wrapper])
             for path, n in paths.items()})
     # llama's prefill gives the flash kernel's headline numbers;
-    # recurrentgemma's local layers (hd 256, window 2048) their own
+    # recurrentgemma's local layers (hd 256, window 2048) and deepseek's
+    # MHA prefill (phase 16) their own
     fa_entry = kernel_entry(
         "flash_attention",
         "src/repro_torch/kernels/flash_attention/csrc/"
@@ -2427,7 +2944,12 @@ def main(argv=None):
                             launches=served["llama3.2-3b"]["flash_attention"]),
         "recurrentgemma-2b": dict(
             fa_t["recurrentgemma prefill"],
-            launches=served["recurrentgemma-2b"]["flash_attention"])}
+            launches=served["recurrentgemma-2b"]["flash_attention"]),
+        "deepseek-moe-16b": dict(
+            fa_t["deepseek prefill"],
+            launches=served["deepseek-moe-16b"]["flash_attention"])}
+    print(f"[train] summary: smoke card vs CPU {train_err}; minicpm-2b "
+          f"full width {train_full}")
     print(json.dumps({"kernels": [
         grant_entry,
         cycle_entry,

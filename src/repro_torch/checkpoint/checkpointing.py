@@ -6,7 +6,9 @@ A state tree is nested dicts, lists/tuples and dataclasses (`SimState`)
 with numpy arrays, torch tensors or Python scalars at the leaves.  Format:
 one .npz per snapshot with flattened "path/to/leaf -> array" keys + a
 small JSON manifest; writes go to a temp dir then rename (atomic), and a
-retention policy keeps the newest K snapshots.
+retention policy keeps the newest K snapshots.  numpy has no bfloat16, so
+a bf16 tensor is saved as its 16-bit pattern (int16) and restored into a
+bf16 tensor, bit for bit.
 """
 from __future__ import annotations
 
@@ -35,8 +37,19 @@ def _children(tree) -> list | None:
 
 def _host(leaf) -> np.ndarray:
     if isinstance(leaf, torch.Tensor):
-        return leaf.detach().to("cpu", copy=True).numpy()
+        t = leaf.detach().to("cpu", copy=True)
+        if t.dtype == torch.bfloat16:
+            t = t.view(torch.int16)
+        return t.numpy()
     return np.asarray(leaf)
+
+
+def _host_dtype(leaf) -> np.dtype:
+    """The dtype `_host(leaf)` has, without fetching the leaf."""
+    if isinstance(leaf, torch.Tensor):
+        dtype = torch.int16 if leaf.dtype == torch.bfloat16 else leaf.dtype
+        return torch.empty((), dtype=dtype).numpy().dtype
+    return np.asarray(leaf).dtype
 
 
 def _flatten(tree, prefix: str = "") -> dict:
@@ -70,12 +83,16 @@ def _rebuild(tree, vals: dict):
 def _unflatten_into(tree, arrays: dict, prefix: str = ""):
     """The structure of `tree` with its leaves read from `arrays`, each
     converted to the template leaf's dtype (a numpy array for an array or
-    tensor leaf, a 0-d array for a Python scalar)."""
+    tensor leaf, a 0-d array for a Python scalar; a CPU tensor for a bf16
+    tensor leaf)."""
     kids = _children(tree)
     if kids is None:
         arr = arrays[prefix]
-        leaf = _host(tree)
-        return arr if arr.dtype == leaf.dtype else arr.astype(leaf.dtype)
+        dtype = _host_dtype(tree)
+        arr = arr if arr.dtype == dtype else arr.astype(dtype)
+        if isinstance(tree, torch.Tensor) and tree.dtype == torch.bfloat16:
+            return torch.from_numpy(arr).view(torch.bfloat16)
+        return arr
     vals = {name: _unflatten_into(
         child, arrays, f"{prefix}/{name}" if prefix else name)
         for name, child in kids}
@@ -154,7 +171,7 @@ class Checkpointer:
 
     def restore(self, template, step: int | None = None) -> tuple:
         """Restore into the structure and dtypes of `template`; returns
-        `(state of host arrays, step)`."""
+        `(state of host arrays, step)` (bf16 leaves as CPU tensors)."""
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoints under {self.dir}")

@@ -24,6 +24,7 @@ from pathlib import Path
 
 import torch
 
+from .. import refuse_autograd
 from ..build import load_library
 from .ref import attention_ref
 
@@ -104,7 +105,9 @@ def flash_attention(q, k, v, causal=True, window=None):
     window applies to causal attention only.
 
     Every CUDA launch adds one to `flash_attention.launches` and to
-    `flash_attention.launches_by_kernel[kernel_for(dtype, hd)]`."""
+    `flash_attention.launches_by_kernel[kernel_for(dtype, hd)]`.  On CUDA
+    it raises where autograd would record the call (the kernel is forward
+    only); the CPU's plain version is differentiable."""
     devices = {x.device for x in (q, k, v)}
     if len(devices) != 1:
         raise ValueError(f"flash_attention: inputs on several devices "
@@ -114,6 +117,7 @@ def flash_attention(q, k, v, causal=True, window=None):
         return attention_ref(q, k, v, causal=causal, window=window)
     if device.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {device}")
+    refuse_autograd("flash_attention", q, k, v)
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
         raise ValueError(f"flash_attention: q [B, Sq, H, hd] and k, v "
                          f"[B, Sk, KV, hd], got {tuple(q.shape)}, "

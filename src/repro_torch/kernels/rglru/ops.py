@@ -27,6 +27,7 @@ from pathlib import Path
 
 import torch
 
+from .. import refuse_autograd
 from ..build import load_library
 from .ref import rglru_scan_ref
 
@@ -65,7 +66,9 @@ def rglru_scan(a, b, chunk=256, block_r=512, *, kernel: str | None = None):
     depend on them, and the CUDA kernels have none.  `kernel` names the
     CUDA kernel ("ring" or "direct"; None: `kernel_for`).  Every CUDA
     launch adds one to `rglru_scan.launches` and to
-    `rglru_scan.launches_by_kernel[kernel]`."""
+    `rglru_scan.launches_by_kernel[kernel]`.  On CUDA it raises where
+    autograd would record the call (the kernels are forward only); the
+    CPU's plain version is differentiable."""
     if a.device != b.device:
         raise ValueError(f"rglru_scan: a on {a.device}, b on {b.device}")
     if int(chunk) < 1 or int(block_r) < 1:
@@ -78,6 +81,7 @@ def rglru_scan(a, b, chunk=256, block_r=512, *, kernel: str | None = None):
         return rglru_scan_ref(a, b)
     if a.device.type != "cuda":
         raise ValueError(f"rglru_scan: unsupported device {a.device}")
+    refuse_autograd("rglru_scan", a, b)
     if a.dim() != 3 or a.shape != b.shape:
         raise ValueError(f"rglru_scan: a and b are [B, S, R], got "
                          f"{tuple(a.shape)}, {tuple(b.shape)}")

@@ -21,6 +21,7 @@ from pathlib import Path
 
 import torch
 
+from .. import refuse_autograd
 from ..build import load_library
 from .ref import ssd_ref
 
@@ -95,7 +96,9 @@ def ssd_scan(x, dt, A, Bm, Cm, chunk=128, return_state=False):
     or all bfloat16 and dt, A float32; the tensor-core kernel reads x, Bm
     and Cm in place (views with unit stride in P and N, as `ssm_apply`
     passes).  Every CUDA launch adds one to `ssd_scan.launches` and to
-    `ssd_scan.launches_by_kernel[kernel_for(dtype, P, N)]`."""
+    `ssd_scan.launches_by_kernel[kernel_for(dtype, P, N)]`.  On CUDA it
+    raises where autograd would record the call (the kernels are forward
+    only); the CPU's plain version is differentiable."""
     devices = {t.device for t in (x, dt, A, Bm, Cm)}
     if len(devices) != 1:
         raise ValueError(f"ssd_scan: inputs on several devices {devices}")
@@ -107,6 +110,7 @@ def ssd_scan(x, dt, A, Bm, Cm, chunk=128, return_state=False):
         return (y, state) if return_state else y
     if device.type != "cuda":
         raise ValueError(f"ssd_scan: unsupported device {device}")
+    refuse_autograd("ssd_scan", x, dt, A, Bm, Cm)
     if x.dim() != 4:
         raise ValueError(f"ssd_scan: x is [B, S, H, P], got "
                          f"{tuple(x.shape)}")

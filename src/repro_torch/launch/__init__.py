@@ -1,1 +1,1 @@
-"""Launchers (port of `repro.launch`): so far the serving launcher."""
+"""Launchers (port of `repro.launch`): serving and training."""

@@ -1,6 +1,7 @@
 """The LM stack (port of `repro.models.transformer`), for the families the
 port has so far: dense attention models (full or local attention, dense
-SwiGLU FFNs), Mamba-2 SSD models (`ssm` blocks) and Griffin hybrids
+SwiGLU FFNs), Mixture-of-Experts models (`moe` FFNs after `first_dense`
+dense layers), Mamba-2 SSD models (`ssm` blocks) and Griffin hybrids
 (`rglru` and local-attention blocks).
 
 The reference groups layers into repeating "pattern" super-blocks and
@@ -11,10 +12,11 @@ is the reference's ``blocks.sub<j>.mix.q.w[g]``).  The reference's
 sharding hook (`constrain`) is the identity on one device and is dropped.
 
 Not ported yet, and raising `NotImplementedError` (ROADMAP queue 1 item
-13): MoE FFNs, encoder-decoder models and modality frontends.
+6): encoder-decoder models and modality frontends.
 
 Modes:
-  train    - full sequence, loss-ready logits
+  train    - full sequence, loss-ready logits (with `remat`, each group is
+             recomputed in the backward pass, `torch.utils.checkpoint`)
   prefill  - full sequence + populates the KV / state caches
   decode   - single token step against the caches
 
@@ -34,11 +36,13 @@ from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
 from ..device import resolve_device
 from . import layers as L
 from .layers import AttnConfig
+from .moe import MoE, moe_apply
 from .rglru import RGLRU, rglru_apply, rglru_cache_init
 from .ssm import SSM, ssm_apply, ssm_cache_init
 
@@ -66,9 +70,6 @@ def _ffn_kind(cfg: ModelConfig, i: int) -> str:
 def _check_ported(cfg: ModelConfig):
     """Raise for the parts of the reference's LM stack not ported yet."""
     todo = "is not ported yet (ROADMAP queue 1 item 6)"
-    if cfg.moe is not None:
-        raise NotImplementedError(f"{cfg.name}: MoE FFN (models/moe.py) "
-                                  f"{todo}")
     if cfg.encoder_layers:
         raise NotImplementedError(f"{cfg.name}: the encoder of an "
                                   f"encoder-decoder model {todo}")
@@ -81,7 +82,7 @@ def _check_ported(cfg: ModelConfig):
 
 class Block(nn.Module):
     """One pre-norm sub-block: the mixer of its kind (attention, SSM or
-    RG-LRU), then the FFN (`_sub_init`)."""
+    RG-LRU), then the FFN, dense or MoE (`_sub_init`)."""
 
     def __init__(self, cfg: ModelConfig, kind: str, ffn: str, device=None):
         super().__init__()
@@ -100,13 +101,19 @@ class Block(nn.Module):
             self.norm2 = L.RMSNorm(cfg.d_model, device)
             self.ffn = L.SwiGLU(cfg.d_model, cfg.d_ff, dtype, cfg.use_bias,
                                 device)
+        elif ffn == "moe":
+            self.norm2 = L.RMSNorm(cfg.d_model, device)
+            self.ffn = MoE(cfg.d_model, cfg.moe, dtype, device)
         else:
             self.norm2 = self.ffn = None
 
 
 def _sub_apply(p: Block, cfg: ModelConfig, kind: str, ffn: str, impl: str,
                x, positions, inv_freq, cache):
+    """One sub-block: (x, aux loss), the aux loss an fp32 scalar tensor
+    from an MoE FFN and None otherwise."""
     h = L.rmsnorm(p.norm1, x, cfg.norm_eps)
+    aux = None
     if kind in ("attn", "local"):
         mixed, _ = L.attention_apply(p.mix, _attn_cfg(cfg, impl, kind), h,
                                      positions, inv_freq, cache)
@@ -120,7 +127,11 @@ def _sub_apply(p: Block, cfg: ModelConfig, kind: str, ffn: str, impl: str,
     if ffn == "dense":
         h2 = L.rmsnorm(p.norm2, x, cfg.norm_eps)
         x = x + L.swiglu(p.ffn, h2)
-    return x
+    elif ffn == "moe":
+        h2 = L.rmsnorm(p.norm2, x, cfg.norm_eps)
+        y, aux = moe_apply(p.ffn, h2, cfg.moe)
+        x = x + y
+    return x, aux
 
 
 def _sub_cache_init(cfg: ModelConfig, kind: str, batch, max_len, dtype,
@@ -182,17 +193,17 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, device=None):
     """A model with random weights, drawn by `generator` (on its own
     device) and placed on `device` (CUDA unless the caller passes
     ``device="cpu"``).  Embeddings are truncated normal of std 1, dense
-    weights of std 1/sqrt(d_in), an untied head of std 1/sqrt(d_model), the
-    SSM and RG-LRU blocks' other weights as their `reset` says, as in the
-    reference; the numbers differ from the reference's, whose generator is
-    JAX's."""
+    weights of std 1/sqrt(d_in), an untied head of std 1/sqrt(d_model),
+    the SSM, RG-LRU and MoE blocks' other weights as their `reset` says, as
+    in the reference; the numbers differ from the reference's, whose
+    generator is JAX's."""
     device = resolve_device(device)
     model = Transformer(cfg, device)
     with torch.no_grad():
         model.embed.copy_(L.truncated_normal(
             generator, model.embed.shape, model.embed.dtype, 1.0))
         for module in model.modules():
-            if isinstance(module, (L.Dense, SSM, RGLRU)):
+            if isinstance(module, (L.Dense, SSM, RGLRU, MoE)):
                 module.reset(generator)
         if model.lm_head is not None:
             model.lm_head.copy_(L.truncated_normal(
@@ -225,9 +236,14 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, device=None):
 
 
 def forward(params: Transformer, cfg: ModelConfig, batch: dict,
-            mode: str = "train", cache=None, attn_impl: str = "chunked"):
+            mode: str = "train", cache=None, attn_impl: str = "chunked",
+            remat: bool = True):
     """batch: tokens [B, S].  Returns (logits, cache, aux_loss); `cache`
-    (prefill, decode) is updated in place and returned."""
+    (prefill, decode) is updated in place and returned.  The aux loss is
+    the fp32 sum of the MoE FFNs' load-balance losses (0 without MoE).
+    With `remat` in train mode, each scanned group's activations are
+    recomputed in the backward pass, as the reference's `jax.checkpoint`
+    of its scan body (only where autograd records)."""
     tokens = batch["tokens"]
     x = params.embed[tokens]
     B, S, D = x.shape
@@ -242,32 +258,64 @@ def forward(params: Transformer, cfg: ModelConfig, batch: dict,
     inv_freq = L.rope_freqs(cfg.hd, cfg.rope_theta,
                             rot_dim=int(cfg.hd * cfg.rope_frac), device=dev)
     use_cache = cache is not None
+    aux_total = torch.zeros((), dtype=torch.float32, device=dev)
 
     def run_sub(p, i, x, c):
         return _sub_apply(p, cfg, _layer_kind(cfg, i), _ffn_kind(cfg, i),
                           attn_impl, x, positions, inv_freq, c)
 
-    def run_listed(part, idxs, x):
+    def add(total, aux):
+        return total if aux is None else total + aux
+
+    def run_listed(part, idxs, x, aux_total):
         for j, i in enumerate(idxs):
             c = cache[part][j] if use_cache else None
-            x = run_sub(getattr(params, part)[j], i, x, c)
-        return x
+            x, aux = run_sub(getattr(params, part)[j], i, x, c)
+            aux_total = add(aux_total, aux)
+        return x, aux_total
 
-    pre, groups, P, post = _segments(cfg)
-    x = run_listed("prelude", pre, x)
-    for g in range(groups):
+    def run_group(g, x, aux_total):
         for j in range(P):
             sub = f"sub{j}"
             # views of group g: the layer's in-place updates land in the stack
             c = ({name: t[g] for name, t in cache["blocks"][sub].items()}
                  if use_cache else None)
-            x = run_sub(params.blocks[g][sub], cfg.first_dense + j, x, c)
-    x = run_listed("postlude", post, x)
+            x, aux = run_sub(params.blocks[g][sub], cfg.first_dense + j, x, c)
+            aux_total = add(aux_total, aux)
+        return x, aux_total
+
+    pre, groups, P, post = _segments(cfg)
+    x, aux_total = run_listed("prelude", pre, x, aux_total)
+    recompute = remat and mode == "train" and torch.is_grad_enabled()
+    for g in range(groups):
+        if recompute:
+            x, aux_total = checkpoint(run_group, g, x, aux_total,
+                                      use_reentrant=False)
+        else:
+            x, aux_total = run_group(g, x, aux_total)
+    x, aux_total = run_listed("postlude", post, x, aux_total)
 
     x = L.rmsnorm(params.final_norm, x, cfg.norm_eps)
     head = params.embed.T if cfg.tie_embeddings else params.lm_head
     logits = x @ head
-    return logits, cache, torch.zeros((), dtype=torch.float32, device=dev)
+    return logits, cache, aux_total
+
+
+def lm_loss(params: Transformer, cfg: ModelConfig, batch: dict,
+            attn_impl: str = "chunked", remat: bool = True):
+    """Mean next-token cross entropy over the positions with a label >= 0,
+    plus the MoE aux loss: (loss, {"nll", "aux"}), fp32 scalars.  The
+    log-sum-exp is the reference's, max-shifted in fp32."""
+    logits, _, aux = forward(params, cfg, batch, "train",
+                             attn_impl=attn_impl, remat=remat)
+    labels = batch["labels"]
+    lg = logits.float()
+    m = lg.amax(dim=-1, keepdim=True)
+    lse = torch.log(torch.exp(lg - m).sum(dim=-1)) + m[..., 0]
+    ll = lg.gather(-1, torch.clamp(labels, min=0).long()[..., None])[..., 0]
+    mask = (labels >= 0).float()
+    nll = ((lse - ll) * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    return nll + aux, {"nll": nll, "aux": aux}
 
 
 def _first_idx(cache):

@@ -1,8 +1,8 @@
 """Tests of the port that need the card (marker `cuda`; they skip where
 `torch.cuda.is_available()` is false, since a CUDA kernel has no CPU mode):
 the netsim kernels and the simulator, the flash-attention, SSD scan and
-RG-LRU scan kernels (the ring kernel bit for bit against the direct one)
-and the served LMs.
+RG-LRU scan kernels (the ring kernel bit for bit against the direct one;
+each refusing autograd), the served LMs and the training path.
 
 The file imports neither jax nor the reference package, so it runs on the
 machine with the card, where JAX is not installed (`tests/conftest.py`
@@ -473,7 +473,7 @@ def test_rglru_ring_kernel_equals_direct_kernel(cuda, B, S, R, const,
 
 
 @pytest.mark.parametrize("arch", ["llama3.2-3b", "mamba2-780m",
-                                  "recurrentgemma-2b"])
+                                  "recurrentgemma-2b", "deepseek-moe-16b"])
 def test_serve_smoke_model_on_card_equals_cpu(cuda, arch):
     """The same fp32 weights on both devices: equal greedy tokens, prefill
     logits within 1e-4 relative (the card sums in other orders)."""
@@ -493,3 +493,89 @@ def test_serve_smoke_model_on_card_equals_cpu(cuda, arch):
                 toks).to(d)}, "prefill", cache=cache,
                 attn_impl="kernel")[0].cpu())
     assert _rel(logits[0], logits[1]) < 1e-4
+
+
+def test_lm_kernels_refuse_autograd(cuda):
+    """Forward-only kernels: a call autograd would record raises (its
+    output would carry no grad_fn); under no_grad it runs."""
+    g = torch.Generator(device=cuda).manual_seed(3)
+
+    def t(*shape, dtype=torch.float32):
+        return torch.randn(shape, generator=g, device=cuda).to(dtype)
+    calls = [(fa_ops.flash_attention, [t(1, 64, 2, 64, dtype=torch.bfloat16)
+                                       for _ in range(3)]),
+             (ssd_ops.ssd_scan, [t(1, 64, 2, 16), t(1, 64, 2).abs(),
+                                 t(2).abs(), t(1, 64, 16), t(1, 64, 16)]),
+             (rglru_ops.rglru_scan, [t(1, 64, 32).sigmoid(), t(1, 64, 32)])]
+    for fn, args in calls:
+        args[-1].requires_grad_()
+        with pytest.raises(RuntimeError, match="no backward"):
+            fn(*args)
+        with torch.no_grad():
+            assert bool(torch.isfinite(fn(*args)).all())
+
+
+@pytest.mark.parametrize("arch,dispatch", [("minicpm-2b", "bf16"),
+                                           ("deepseek-moe-16b", "int8")])
+def test_train_steps_on_card_equal_cpu(cuda, arch, dispatch):
+    """Three fp32 train steps (chunked attention, remat, microbatch 2) from
+    the same weights: metrics at 1e-5 relative, every parameter element
+    within 1e-5 but at most 1e-3 of them (rounding noise below Adam's eps
+    moves an element by up to lr a step), those within Adam's largest
+    move (as `chip_smoke.py` phase 15)."""
+    from repro_torch.data.pipeline import SyntheticTokens
+    from repro_torch.optim.optimizer import OptConfig, init_opt_state
+    from repro_torch.runtime.trainer import TrainSetup, make_train_step
+    cfg = dataclasses.replace(get_config(arch + "-smoke"), dtype="float32")
+    if cfg.moe is not None:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, dispatch=dispatch))
+    setup = TrainSetup(model=cfg, opt=OptConfig(
+        lr=1e-3, warmup_steps=1, total_steps=3, weight_decay=0.1),
+        attn_impl="chunked", remat=True, microbatch=2)
+    cpu = TF.init_params(cfg, torch.Generator().manual_seed(2), device="cpu")
+    runs = []
+    for model in (copy.deepcopy(cpu).to(cuda), cpu):
+        step, opt = make_train_step(setup), init_opt_state(model)
+        data = SyntheticTokens(cfg.vocab_size, 4, 64, seed=3)
+        hist = []
+        for _ in range(3):
+            model, opt, m = step(model, opt, next(data))
+            hist.append({k: float(v) for k, v in m.items()})
+        runs.append((model, hist))
+    (card, chist), (cpu, phist) = runs
+    for a, b in zip(chist, phist):
+        for k in b:
+            assert abs(a[k] - b[k]) <= 1e-5 * abs(b[k]), k
+    d = torch.cat([(p.detach().cpu() - q.detach()).abs().reshape(-1)
+                   for p, q in zip(card.parameters(), cpu.parameters())])
+    assert float((d > 1e-5).float().mean()) <= 1e-3
+    assert float(d.max()) <= 2 * sum(h["lr"] for h in phist)
+
+
+def test_bf16_training_checkpoint_round_trips_on_card(cuda, tmp_path):
+    """A bf16 trainer's snapshot restored after more steps: every param
+    and optimizer leaf bit for bit."""
+    from repro_torch.checkpoint.checkpointing import Checkpointer
+    from repro_torch.data.pipeline import SyntheticTokens
+    from repro_torch.optim.optimizer import OptConfig
+    from repro_torch.runtime.trainer import Trainer, TrainSetup
+    cfg = get_config("deepseek-moe-16b-smoke")
+    tr = Trainer(TrainSetup(model=cfg, opt=OptConfig(lr=2e-3),
+                            attn_impl="naive", remat=False),
+                 SyntheticTokens(cfg.vocab_size, 4, 32, seed=3),
+                 checkpointer=Checkpointer(str(tmp_path)), device=cuda)
+    tr.run(3)
+    tr.save()
+    saved = [t.detach().clone() for t in tr.model.parameters()]
+    saved += [t.clone() for k in ("master", "m", "v")
+              for t in tr.opt_state[k].values()]
+    tr.run(2)
+    assert tr.restore() == 3
+    now = [t.detach() for t in tr.model.parameters()]
+    now += [t for k in ("master", "m", "v") for t in tr.opt_state[k].values()]
+    assert any(t.dtype == torch.bfloat16 for t in now)
+    for a, b in zip(now, saved):
+        assert a.dtype == b.dtype and torch.equal(
+            a.view(torch.int16) if a.dtype == torch.bfloat16 else a,
+            b.view(torch.int16) if b.dtype == torch.bfloat16 else b)
