@@ -69,8 +69,12 @@ Phases (any failure ends the run with a nonzero exit):
    inputs, the plain version and the SDPA call; the recurrentgemma-2b
    prefill's local attention (B = 4, S = 4096, H = 10, KV = 1, hd = 256,
    window 2048, bf16) is checked and timed the same way, beside SDPA with
-   the window as a mask, and so is deepseek-moe-16b's (B = 4, S = 2048,
-   H = KV = 16, hd = 128);
+   the window as a mask, and so are deepseek-moe-16b's (B = 4, S = 2048,
+   H = KV = 16, hd = 128), phi-3-vision-4.2b's (576 prefix rows + 2,048
+   tokens: S = 2,624, off the kernel's 128-row tiles, H = KV = 32, hd = 96
+   zero-padded to 128; SDPA at hd 96, the FMA kernel not timed) and
+   seamless-m4t-medium's encoder (non-causal, beside plain SDPA) and
+   decoder (B = 4, S = 2048, H = KV = 16, hd = 64);
 8. the SSD scan kernels against their plain version `ssd_ref` on the
    card, each case on the kernel the (dtype, P, N) rule names (bf16 on the
    tensor-core kernel, fp32 on the FMA kernel): the shapes of the
@@ -104,8 +108,9 @@ Phases (any failure ends the run with a nonzero exit):
    and that token: 2e-2 in bf16 (with SSM layers, or twice the naive
    forward's own move under a halved SSD chunk if larger), and for the
    two recurrent models also in fp32 at 1e-3;
-11. the served smoke models in fp32 on the card against the CPU: equal
-   greedy tokens, prefill logits within 1e-4;
+11. the served smoke models (phases 10 and 17) in fp32 on the card
+   against the CPU, with the serve command line's inputs: equal greedy
+   tokens, prefill logits within 1e-4;
 12. the experiment layer on the card: Fig. 11's grid at paper scale
    (`fig11_spec(fast=False)`: radix-16 g = 41 switch-less 1B and 2B and
    the switch-based Dragonfly, uniform and bit-reverse, offered 0.4 / 0.7
@@ -156,11 +161,21 @@ Phases (any failure ends the run with a nonzero exit):
    28 flash_attention launches a prefill, all on the tensor-core kernel),
    the share of (token, slot) pairs the capacity dropped in a prefill,
    and the logits check run with no pair dropped (C = T), since the
-   capacity depends on the token count of each call.
+   capacity depends on the token count of each call;
+17. phi-3-vision-4.2b (576 `prefix_embeds` rows before a 2,048-token
+   prompt, in the cache; 32 flash_attention launches a prefill) and
+   seamless-m4t-medium (2,048 `src_embeds` frames encoded by 12
+   non-causal layers, 12 causal decoder layers with a naive
+   cross-attention each: 24 launches a prefill; every decode step
+   re-encodes the source, naive, as the reference's serve loop does)
+   served at full width as in phase 10, every flash launch on the
+   tensor-core kernel, with the parameter count read from the module;
+   the logits check in bf16 (2e-2) and over the whole model in fp32
+   (1e-3).
 
 Then one JSON line of kernel numbers (the netsim entries with the launches
 of every path, phases 4 and 12-14, in `by_path`; the flash entry's
-launches by served model), the card's name and power limit, and the final
+launches and timings by served model), the card's name and power limit, and the final
 status line.  Exits nonzero, printing no result, without a CUDA
 device or without the repository's sources.
 """
@@ -988,16 +1003,17 @@ def profile_report(prof, wall, label, n, unit, names):
     return named
 
 
-def phase_serve_profile(model, cfg, tokens, device, steps=4):
-    """torch.profiler over one full-width prefill on the kernel, then over
-    `steps` decode steps."""
+def phase_serve_profile(model, cfg, batch, device, steps=4):
+    """torch.profiler over one full-width prefill of `batch` on the
+    kernel, then over `steps` decode steps."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+    from repro_torch.launch.serve import cache_len, decode_extra
     from repro_torch.models import transformer as TF
-    B, S = tokens.shape
+    B, S = batch["tokens"].shape
     with torch.inference_mode():
-        cache = TF.init_cache(cfg, B, S + steps, device=device)
-        tok = torch.as_tensor(tokens, dtype=torch.int32, device=device)
+        cache = TF.init_cache(cfg, B, cache_len(cfg, S, steps), device=device)
+        inputs = batch
         for mode, n in (("prefill", 1), ("decode", steps)):
             torch.cuda.synchronize()
             with profile(activities=[ProfilerActivity.CPU,
@@ -1005,9 +1021,10 @@ def phase_serve_profile(model, cfg, tokens, device, steps=4):
                 t0 = time.perf_counter()
                 for _ in range(n):
                     logits, cache, _ = TF.forward(
-                        model, cfg, {"tokens": tok}, mode, cache=cache,
+                        model, cfg, inputs, mode, cache=cache,
                         attn_impl="kernel" if mode == "prefill" else "naive")
                     tok = torch.argmax(logits[:, -1:], dim=-1).int()
+                    inputs = {"tokens": tok, **decode_extra(cfg, batch)}
                 torch.cuda.synchronize()
                 wall = time.perf_counter() - t0
             del logits
@@ -1229,6 +1246,19 @@ FA_GEMMA = (SERVE_BATCH, 4096, 4096, 10, 1, 256)
 FA_GEMMA_WINDOW = 2048
 # deepseek-moe-16b's prefill (phase 16): 16 heads of 128, MHA
 FA_DEEPSEEK = (SERVE_BATCH, 2048, 2048, 16, 16, 128)
+# phase 17: phi-3-vision-4.2b's prefill, 576 prefix rows + 2,048 tokens,
+# 32 MHA heads of 96 (zero-padded to 128 by the wrapper); seamless-m4t-
+# medium's encoder (non-causal) and decoder (causal), 16 MHA heads of 64
+FA_PHI = (SERVE_BATCH, 576 + 2048, 576 + 2048, 32, 32, 96)
+FA_SEAMLESS = (SERVE_BATCH, 2048, 2048, 16, 16, 64)
+# label -> (shape, causal) of the served prefills' bf16 flash shapes that
+# phase 7 times
+FA_TIMED = {"serving prefill": (FA_LLAMA, True),
+            "recurrentgemma prefill": (FA_GEMMA, True),
+            "deepseek prefill": (FA_DEEPSEEK, True),
+            "phi-3-vision prefill": (FA_PHI, True),
+            "seamless encoder": (FA_SEAMLESS, False),
+            "seamless decoder": (FA_SEAMLESS, True)}
 
 
 def _fa_cases():
@@ -1267,9 +1297,10 @@ def _fa_cases():
     cases += [("serving prefill", FA_LLAMA, dt, dict(causal=True))
               for dt in ("float32", "bfloat16")]
     cases += [("recurrentgemma prefill", FA_GEMMA, "bfloat16",
-               dict(causal=True, window=FA_GEMMA_WINDOW)),
-              ("deepseek prefill", FA_DEEPSEEK, "bfloat16",
-               dict(causal=True))]
+               dict(causal=True, window=FA_GEMMA_WINDOW))]
+    cases += [(label, shape, "bfloat16", dict(causal=causal))
+              for label, (shape, causal) in FA_TIMED.items()
+              if label not in ("serving prefill", "recurrentgemma prefill")]
     return cases
 
 
@@ -1292,8 +1323,8 @@ def _row_rel(got, want):
 
 def phase_flash_attention(device):
     """The kernel against `attention_ref` on the card for every case;
-    returns (max abs error, {label: bf16 inputs} of the three served
-    prefills' shapes).  The error is relative per output row (one query
+    returns (max abs error, {label: bf16 inputs} of the served prefills'
+    shapes, `FA_TIMED`).  The error is relative per output row (one query
     position of one head): each row's largest |kernel - plain| over that
     row's largest |plain|, so a late causal row, an average of thousands
     of values and far smaller than the first row's, is held to its own
@@ -1322,15 +1353,17 @@ def phase_flash_attention(device):
         print(f"[flash] {label} {shape} {dtype} {kw}: {kernel} kernel == "
               f"attention_ref (max abs {diff:.3e}, relative per row "
               f"{rel:.3e})")
-        if shape in (FA_LLAMA, FA_GEMMA, FA_DEEPSEEK) \
-                and dtype == "bfloat16":
+        if label in FA_TIMED and dtype == "bfloat16":
             timed[label] = (q, k, v, kw)
         del q, k, v
     return worst, timed
 
 
-def _causal_pairs(S, window=None):
-    """(query, key) pairs a causal (windowed) attention over S keys uses."""
+def _causal_pairs(S, window=None, causal=True):
+    """(query, key) pairs a causal (windowed) attention over S keys uses;
+    every pair without `causal`."""
+    if not causal:
+        return S * S
     if window is None or window >= S:
         return S * (S + 1) // 2
     return window * (window + 1) // 2 + (S - window) * window
@@ -1338,37 +1371,41 @@ def _causal_pairs(S, window=None):
 
 def phase_flash_timing(q, k, v, kw):
     """Kernel, plain version and the SDPA call at a served prefill's shape,
-    back to back (with a window, SDPA takes it as a boolean mask); the
-    bound is the larger of the bf16 operations at the tensor cores' peak
-    and the bytes at the memory's."""
+    back to back (with a window, SDPA takes it as a boolean mask; a head
+    dim the kernels are not built for, phi-3-vision's 96, goes to SDPA
+    unpadded, and the FMA kernel is not timed there); the bound is the
+    larger of the bf16 operations at the true head dim at the tensor
+    cores' peak and the bytes at the memory's."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import attention_ref, ops
     B, S, H, hd = q.shape
-    window = kw.get("window")
+    window, causal = kw.get("window"), kw.get("causal", True)
     ms = cuda_ms(lambda: ops.flash_attention(q, k, v, **kw), 10)
-    fma_ms = cuda_ms(lambda: fma_kernel(q, k, v, **kw), 3)
+    fma_ms = (cuda_ms(lambda: fma_kernel(q, k, v, **kw), 3)
+              if hd in ops.HEAD_DIMS else None)
     plain_ms = cuda_ms(lambda: attention_ref(q, k, v, **kw), 3)
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
     if window is None:
         library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True, enable_gqa=True), 10)
+            qt, kt, vt, is_causal=causal, enable_gqa=True), 10)
     else:
         pos = torch.arange(S, device=q.device)
         mask = (pos[None, :] <= pos[:, None]) \
             & (pos[None, :] > pos[:, None] - window)
         library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
             qt, kt, vt, attn_mask=mask, enable_gqa=True), 10)
-    ops_count = 4 * hd * B * H * _causal_pairs(S, window)
+    ops_count = 4 * hd * B * H * _causal_pairs(S, window, causal)
     nbytes = sum(x.numel() * x.element_size() for x in (q, k, v, q))
     ops_ms = ops_count / H100_BF16_OPS_PER_S * 1e3
     bytes_ms = nbytes / H100_BYTES_PER_S * 1e3
     bound_ms = max(ops_ms, bytes_ms)
-    print(f"[flash] B={B} S={S} H={H} KV={k.shape[2]} hd={hd} window "
-          f"{window} bf16: {ops.kernel_for(q.dtype, hd)} kernel {ms:.4f} "
-          f"ms/launch ({ops_count / ms * 1e-9:.1f} TFLOP/s, "
+    fma = "not built for this hd" if fma_ms is None else f"{fma_ms:.4f} ms"
+    print(f"[flash] B={B} S={S} H={H} KV={k.shape[2]} hd={hd} causal "
+          f"{causal} window {window} bf16: {ops.kernel_for(q.dtype, hd)} "
+          f"kernel {ms:.4f} ms/launch ({ops_count / ms * 1e-9:.1f} TFLOP/s, "
           f"{bound_ms / ms:.3f} of the bound), the FMA kernel on the same "
-          f"bf16 inputs {fma_ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA "
+          f"bf16 inputs {fma}, plain {plain_ms:.4f} ms, SDPA "
           f"{library_ms:.4f} ms, bound {bound_ms * 1e3:.2f} us "
           f"({ops_count} operations: {ops_ms * 1e3:.2f} us at 989.4 TFLOP/s; "
           f"{nbytes} bytes: {bytes_ms * 1e3:.2f} us at 3.35 TB/s)")
@@ -1656,11 +1693,27 @@ def phase_rglru_timing(a, b):
 
 
 def expected_launches(cfg):
-    """The LM kernels' launches in one prefill: one a layer of its kind."""
+    """The LM kernels' launches in one prefill: one a layer of its kind,
+    the encoder's (non-causal) attention layers included."""
     kinds = [cfg.block_pattern[i % len(cfg.block_pattern)]
-             for i in range(cfg.num_layers)]
-    return {"flash_attention": sum(k in ("attn", "local") for k in kinds),
+             for i in range(cfg.num_layers)] + ["enc"] * cfg.encoder_layers
+    return {"flash_attention": sum(k in ("attn", "local", "enc")
+                                   for k in kinds),
             "ssd_scan": kinds.count("ssm"), "rglru": kinds.count("rglru")}
+
+
+def head_of(batch, n):
+    """`batch` with its tokens and source frames cut to the first `n`."""
+    return {k: v[:, :n] if k in ("tokens", "src_embeds") else v
+            for k, v in batch.items()}
+
+
+def on_device(batch, device):
+    """`batch` as tensors on `device` (tokens int32)."""
+    import torch
+    return {k: torch.as_tensor(v, dtype=torch.int32 if k == "tokens"
+                               else None).to(device)
+            for k, v in batch.items()}
 
 
 def phase_serve(device, arch, S, profile=False):
@@ -1668,15 +1721,16 @@ def phase_serve(device, arch, S, profile=False):
     `generate` calls, each holding the LM kernels' launches to one a layer
     of the kernel's kind, every flash_attention and ssd_scan launch on the
     kernel the rule names; returns the launches of one `generate` (the
-    last).  With `profile`, then traces a prefill and a few decode
-    steps."""
+    last).  The inputs are the serve command line's (`draw_batch`: a
+    vision model's prefix rows, an encoder-decoder's S source frames).
+    With `profile`, then traces a prefill and a few decode steps."""
     import statistics
     import torch
     from repro_torch.configs.registry import get_config
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.rglru import ops as rglru_ops
     from repro_torch.kernels.ssd_scan import ops as ssd_ops
-    from repro_torch.launch.serve import generate
+    from repro_torch.launch.serve import draw_batch, generate
     from repro_torch.models import transformer as TF
     cfg = get_config(arch)
     B, gen = SERVE_BATCH, SERVE_GEN
@@ -1685,11 +1739,14 @@ def phase_serve(device, arch, S, profile=False):
                            device=device)
     torch.cuda.synchronize()
     print(f"[serve] {cfg.name}: {cfg.num_params()} parameters (num_params), "
+          f"{sum(p.numel() for p in model.parameters())} in the module, "
           f"{cfg.dtype}, init on the card {time.perf_counter() - t0:.2f} s")
-    tokens = np.random.default_rng(0).integers(0, cfg.vocab_size, (B, S))
+    batch = on_device(draw_batch(cfg, B, S), device)
+    print(f"[serve] {arch} inputs: " + ", ".join(
+        f"{k} {tuple(v.shape)} {v.dtype}" for k, v in batch.items()))
     # warm-up: the first bf16 products load their cuBLAS kernels
-    generate(model, cfg, {"tokens": tokens[:, :128]}, 2,
-             prefill_impl="kernel", device=device)
+    generate(model, cfg, head_of(batch, 128), 2, prefill_impl="kernel",
+             device=device)
     torch.cuda.reset_peak_memory_stats()
     kernels = _lm_kernels()
     # the kernel each bf16 prefill launch runs: attention at the model's hd
@@ -1707,8 +1764,7 @@ def phase_serve(device, arch, S, profile=False):
     for _ in range(SERVE_SAMPLES):
         _reset_launches()
         out, prefill_s, step_ms = generate(
-            model, cfg, {"tokens": tokens}, gen, prefill_impl="kernel",
-            device=device)
+            model, cfg, batch, gen, prefill_impl="kernel", device=device)
         launches = {name: fn.launches for name, fn in kernels.items()}
         check(tuple(out.shape) == (B, gen),
               f"generated shape {tuple(out.shape)}")
@@ -1733,24 +1789,34 @@ def phase_serve(device, arch, S, profile=False):
                 f"max {max(xs):.2f}; {', '.join(f'{x:.2f}' for x in xs)})")
     prefill = statistics.median(prefill_ms) / 1e3
     decode = statistics.median(decode_ms)
-    print(f"[serve] {arch} batch {B}, prompt {S}, {gen} tokens, "
+    extra = "".join(f", {k} rows {v.shape[1]}" for k, v in batch.items()
+                    if k != "tokens")
+    print(f"[serve] {arch} batch {B}, prompt {S}{extra}, {gen} tokens, "
           f"{SERVE_SAMPLES} samples: prefill ms {spread(prefill_ms)}, "
           f"{B * S / prefill:.1f} tokens/s at the median; decode ms/token "
           f"{spread(decode_ms)}, {B * 1e3 / decode:.1f} tokens/s at the "
           f"median; launches {launches}; max_memory_allocated {peak} bytes")
     print(f"[serve] {arch} tokens[0]: {out[0].tolist()}")
     if profile:
-        phase_serve_profile(model, cfg, tokens, device)
+        phase_serve_profile(model, cfg, batch, device)
+    tokens = batch["tokens"].cpu().numpy()
     if cfg.moe is not None:
         launches["moe_dropped_share"] = check_moe_against_naive(
             model, cfg, tokens, device)
     else:
-        check_against_naive(model, cfg, tokens, device)
-    if cfg.ssm is not None or cfg.rglru is not None:
-        # the scans' algorithm and the state handoff, free of bf16 rounding
+        check_against_naive(model, cfg, batch, device)
+    if cfg.ssm is not None or cfg.rglru is not None or cfg.frontend \
+            or cfg.encoder_layers:
+        # the scans' algorithm and the state handoff, the prefix rows in
+        # the cache and the encoder's memory, free of bf16 rounding, over
+        # the whole model
+        torch.cuda.empty_cache()
         model.float()
+        torch.cuda.reset_peak_memory_stats()
         check_against_naive(model, dataclasses.replace(cfg, dtype="float32"),
-                            tokens, device)
+                            batch, device)
+        print(f"[serve] {arch} float32 check: max_memory_allocated "
+              f"{torch.cuda.max_memory_allocated()} bytes")
     if cfg.moe is not None:
         # the MoE path, its drops and the caches free of bf16 rounding, at
         # full depth (16.4 B parameters: 65.4 GB in fp32); the decode check
@@ -1911,29 +1977,31 @@ def check_moe_against_naive(model, cfg, tokens, device, gen=SERVE_GEN,
     return dropped / routed
 
 
-def served_and_naive(model, cfg, tokens, device, gen=SERVE_GEN):
-    """Last-position logits of (a kernel prefill of `tokens` into an
-    S + gen slot cache, as generate runs it, then one decode step of its
-    greedy token), and of one naive forward over the prompt and that
-    token at positions S-1 and S."""
+def served_and_naive(model, cfg, batch, device, gen=SERVE_GEN):
+    """Last-position logits of (a kernel prefill of `batch` (tokens [B, S],
+    a vision model's prefix rows, an encoder-decoder's source frames) into
+    a cache as generate sizes it, then one decode step of its greedy
+    token), and of one naive forward over the same prefix or source, the
+    prompt and that token, at token positions S-1 and S."""
     import torch
+    from repro_torch.launch.serve import cache_len, decode_extra
     from repro_torch.models import transformer as TF
-    B, S = tokens.shape
+    prompt = batch["tokens"]
+    B, S = prompt.shape
     with torch.inference_mode():
-        prompt = torch.as_tensor(tokens, dtype=torch.int32, device=device)
-        cache = TF.init_cache(cfg, B, S + gen, device=device)
-        logits, cache, _ = TF.forward(model, cfg, {"tokens": prompt},
-                                      "prefill", cache=cache,
-                                      attn_impl="kernel")
+        cache = TF.init_cache(cfg, B, cache_len(cfg, S, gen), device=device)
+        logits, cache, _ = TF.forward(model, cfg, batch, "prefill",
+                                      cache=cache, attn_impl="kernel")
         served = [logits[:, -1].float()]
         nxt = torch.argmax(logits[:, -1:], dim=-1).int()
         del logits
-        logits, cache, _ = TF.forward(model, cfg, {"tokens": nxt}, "decode",
-                                      cache=cache)
+        logits, cache, _ = TF.forward(
+            model, cfg, {"tokens": nxt, **decode_extra(cfg, batch)},
+            "decode", cache=cache)
         served.append(logits[:, -1].float())
         del logits, cache
-        full = torch.cat([prompt, nxt], 1)
-        logits, _, _ = TF.forward(model, cfg, {"tokens": full}, "train",
+        full = dict(batch, tokens=torch.cat([prompt, nxt], 1))
+        logits, _, _ = TF.forward(model, cfg, full, "train",
                                   attn_impl="naive")
         naive = [logits[:, -2].float(), logits[:, -1].float()]
         del logits
@@ -1943,7 +2011,7 @@ def served_and_naive(model, cfg, tokens, device, gen=SERVE_GEN):
             # order of its fp32 sums) changed
             half = dataclasses.replace(cfg, ssm=dataclasses.replace(
                 cfg.ssm, chunk=cfg.ssm.chunk // 2))
-            logits, _, _ = TF.forward(model, half, {"tokens": full}, "train",
+            logits, _, _ = TF.forward(model, half, full, "train",
                                       attn_impl="naive")
             control = [logits[:, -2].float(), logits[:, -1].float()]
             del logits
@@ -1954,7 +2022,7 @@ def _rel(a, b):
     return float((a - b).abs().max() / b.abs().max())
 
 
-def check_against_naive(model, cfg, tokens, device):
+def check_against_naive(model, cfg, batch, device):
     """The served path's prefill and first decode step against a naive
     full forward, last position.  fp32: within 1e-3.  bf16: within 2e-2,
     or twice the plain forward's own move when only its SSD chunk changes
@@ -1963,7 +2031,7 @@ def check_against_naive(model, cfg, tokens, device):
     same path to 1e-3)."""
     import torch
     arch = cfg.name
-    served, naive, control = served_and_naive(model, cfg, tokens, device)
+    served, naive, control = served_and_naive(model, cfg, batch, device)
     for i, what in enumerate(("prefill (kernel)", "decode step")):
         check(bool(torch.isfinite(served[i]).all()),
               f"{arch} {cfg.dtype} {what}: non-finite logits")
@@ -1984,28 +2052,29 @@ def check_against_naive(model, cfg, tokens, device):
 
 
 def phase_lm_parity(device, arch):
-    """A smoke model in fp32 with the same weights on the card and on the
-    CPU: equal greedy tokens, prefill logits within 1e-4 relative."""
+    """A smoke model in fp32 with the same weights and inputs (the serve
+    command line's: a vision model's prefix rows, an encoder-decoder's
+    source frames) on the card and on the CPU: equal greedy tokens,
+    prefill logits within 1e-4 relative."""
     import copy
     import torch
     from repro_torch.configs.registry import get_config
-    from repro_torch.launch.serve import generate
+    from repro_torch.launch.serve import cache_len, draw_batch, generate
     from repro_torch.models import transformer as TF
     cfg = dataclasses.replace(get_config(arch + "-smoke"), dtype="float32")
     cpu = TF.init_params(cfg, torch.Generator().manual_seed(1), device="cpu")
     card = copy.deepcopy(cpu).to(device)
-    tokens = np.random.default_rng(1).integers(0, cfg.vocab_size, (2, 64))
+    inputs = draw_batch(cfg, 2, 64, seed=1)
     runs = [(card, device), (cpu, "cpu")]
-    outs = [generate(m, cfg, {"tokens": tokens}, 8, prefill_impl="kernel",
+    outs = [generate(m, cfg, inputs, 8, prefill_impl="kernel",
                      device=d)[0].cpu() for m, d in runs]
     check(torch.equal(outs[0], outs[1]), f"{cfg.name}: CUDA tokens != CPU")
     logits = []
     with torch.inference_mode():
         for m, d in runs:
-            batch = {"tokens": torch.as_tensor(tokens).to(d)}
-            logits.append(TF.forward(m, cfg, batch, "prefill",
-                                     cache=TF.init_cache(cfg, 2, 64, device=d),
-                                     attn_impl="kernel")[0].cpu())
+            cache = TF.init_cache(cfg, 2, cache_len(cfg, 64, 0), device=d)
+            logits.append(TF.forward(m, cfg, on_device(inputs, d), "prefill",
+                                     cache=cache, attn_impl="kernel")[0].cpu())
     rel = float((logits[0] - logits[1]).abs().max() / logits[1].abs().max())
     check(rel < 1e-4, f"{cfg.name}: CUDA logits vs CPU relative {rel}")
     print(f"[lm-parity] {cfg.name} fp32: 8 greedy tokens CUDA == CPU "
@@ -2463,6 +2532,10 @@ TRAIN_FULL_LOSS, TRAIN_FULL_NORM = 1e-2, 5e-2
 TRAIN_FULL_LOW_LR = 3e-5
 # phase 16: MoE serving at full width
 MOE_SERVE = ("deepseek-moe-16b", 2048)
+# phase 17: the vision prefix (576 rows before the prompt) and the
+# encoder-decoder (2,048 source frames, the prompt's length, as the serve
+# command line draws them) at full width
+FRONTEND_SERVE = (("phi-3-vision-4.2b", 2048), ("seamless-m4t-medium", 2048))
 
 
 def _smoke_train_cfg(arch, dispatch):
@@ -2826,8 +2899,7 @@ def main(argv=None):
     graph_t = phase_graphs(net, device)
     fa_err, fa_timed = phase_flash_attention(device)
     fa_t = {label: phase_flash_timing(*fa_timed[label])
-            for label in ("serving prefill", "recurrentgemma prefill",
-                          "deepseek prefill")}
+            for label in FA_TIMED}
     del fa_timed
     ssd_err, ssd_args = phase_ssd_scan(device)
     ssd_t = phase_ssd_timing(ssd_args)
@@ -2838,7 +2910,7 @@ def main(argv=None):
     torch.cuda.empty_cache()
     served = {arch: phase_serve(device, arch, S, profile=args.profile)
               for arch, S in SERVE}
-    for arch, _ in SERVE:
+    for arch, _ in SERVE + FRONTEND_SERVE:
         phase_lm_parity(device, arch)
     torch.cuda.empty_cache()
     exp_t, fig11, fig11_grids = phase_exp(device)
@@ -2855,6 +2927,8 @@ def main(argv=None):
     train_full = phase_train_full(device)
     arch, S = MOE_SERVE
     served[arch] = phase_serve(device, arch, S, profile=args.profile)
+    for arch, S in FRONTEND_SERVE:
+        served[arch] = phase_serve(device, arch, S, profile=args.profile)
     # the netsim kernels: the coop kernel's numbers, the three-pass
     # kernel's time on the same inputs beside them
     grant_entry = kernel_entry(
@@ -2906,8 +2980,9 @@ def main(argv=None):
                        launches_by_kernel=n[wrapper])
             for path, n in paths.items()})
     # llama's prefill gives the flash kernel's headline numbers;
-    # recurrentgemma's local layers (hd 256, window 2048) and deepseek's
-    # MHA prefill (phase 16) their own
+    # recurrentgemma's local layers (hd 256, window 2048), deepseek's MHA
+    # prefill (phase 16), phi-3-vision's hd 96 prefill over prefix and
+    # prompt and seamless's encoder and decoder (phase 17) their own
     fa_entry = kernel_entry(
         "flash_attention",
         "src/repro_torch/kernels/flash_attention/csrc/"
@@ -2947,7 +3022,14 @@ def main(argv=None):
             launches=served["recurrentgemma-2b"]["flash_attention"]),
         "deepseek-moe-16b": dict(
             fa_t["deepseek prefill"],
-            launches=served["deepseek-moe-16b"]["flash_attention"])}
+            launches=served["deepseek-moe-16b"]["flash_attention"]),
+        "phi-3-vision-4.2b": dict(
+            fa_t["phi-3-vision prefill"],
+            launches=served["phi-3-vision-4.2b"]["flash_attention"]),
+        "seamless-m4t-medium": dict(
+            encoder=fa_t["seamless encoder"],
+            decoder=fa_t["seamless decoder"],
+            launches=served["seamless-m4t-medium"]["flash_attention"])}
     print(f"[train] summary: smoke card vs CPU {train_err}; minicpm-2b "
           f"full width {train_full}")
     print(json.dumps({"kernels": [

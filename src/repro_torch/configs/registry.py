@@ -1,11 +1,12 @@
 """The 10 assigned architectures, exact public-literature configs (port of
 `repro.configs.registry`).
 
-Every entry is selectable via --arch <id>.  A copy of the reference module
-without `input_specs` (the dry-run's stand-in inputs), which the port does
-not have yet.
+Every entry is selectable via --arch <id>; `input_specs` produces
+stand-ins on the `meta` device for the dry-run (no allocation).
 """
 from __future__ import annotations
+
+import torch
 
 from .base import (LM_SHAPES, MoEConfig, ModelConfig, RGLRUConfig,
                    ShapeConfig, SSMConfig, shape_by_name, smoke_config)
@@ -134,3 +135,31 @@ def cell_applicable(cfg: ModelConfig, shape: ShapeConfig) -> tuple[bool, str]:
     if shape.name == "long_500k" and not cfg.subquadratic:
         return False, "full-attention arch: O(L^2) at 512K not deployable"
     return True, ""
+
+
+def input_specs(cfg: ModelConfig, shape: ShapeConfig,
+                batch_override: int | None = None) -> dict:
+    """Stand-ins for every model input of this cell: tensors on the `meta`
+    device with the reference's shapes and dtypes (int32 tokens and
+    labels, embeddings in the model's dtype)."""
+    B = batch_override or shape.global_batch
+    S = shape.seq_len
+
+    def spec(size, dtype=cfg.torch_dtype):
+        return torch.empty(size, dtype=dtype, device="meta")
+
+    if shape.kind not in ("train", "prefill"):
+        # decode: one new token against a seq_len cache
+        specs = {"tokens": spec((B, 1), torch.int32)}
+        if cfg.family == "encdec":
+            specs["memory"] = spec((B, S // 4, cfg.d_model))
+        return specs
+    specs = {"tokens": spec((B, S), torch.int32)}
+    if shape.kind == "train":
+        specs["labels"] = spec((B, S), torch.int32)
+    if cfg.frontend == "vision":
+        specs["prefix_embeds"] = spec((B, cfg.num_prefix, cfg.d_model))
+    if cfg.family == "encdec":
+        # audio frames ~4x shorter than the token sequence
+        specs["src_embeds"] = spec((B, S // 4, cfg.d_model))
+    return specs

@@ -1,10 +1,12 @@
 """Weights across the two packages: the reference's `init_params` tree (as
 numpy arrays) into the port's `Transformer`, number for number.
 
-The tree's stacked ``blocks`` leaves carry a leading group axis (the
-reference builds them with `jax.vmap`): leaf ``blocks.sub<j>.mix.q.w`` of
-shape ``[groups, d_in, d_out]`` fills parameter ``blocks.<g>.sub<j>.mix.q.w``
-with its slice ``g``.  Dense weights keep the reference's ``[d_in, d_out]``
+The tree's stacked ``blocks`` and ``encoder`` leaves carry a leading
+group or layer axis (the reference builds them with `jax.vmap`): leaf
+``blocks.sub<j>.mix.q.w`` of shape ``[groups, d_in, d_out]`` fills
+parameter ``blocks.<g>.sub<j>.mix.q.w`` with its slice ``g``, and leaf
+``encoder.mix.q.w`` of shape ``[encoder_layers, d_in, d_out]`` fills
+``encoder.<i>.mix.q.w`` with its slice ``i``.  Dense weights keep the reference's ``[d_in, d_out]``
 layout, norm scales, the MoE router and the recurrent blocks' fp32 leaves
 (`A_log`, `D`, `dt_bias`, `lam`) stay fp32 in a bf16 model, stacked MoE
 experts carry ``[groups, E, D, F]``, and a tied model has no ``lm_head``
@@ -23,6 +25,10 @@ from ..configs.base import ModelConfig
 from ..device import resolve_device
 from ..optim.optimizer import init_opt_state
 from .transformer import Transformer
+
+
+# the reference's param subtrees stacked with a leading axis
+STACKED = ("blocks", "encoder")
 
 
 def _tensor(a) -> torch.Tensor:
@@ -45,26 +51,28 @@ def _leaves(tree, path=()):
         yield path, tree
 
 
-def _leaf_of(leaves: dict, name: str, used: set) -> torch.Tensor:
+def _leaf_of(leaves: dict, name: str, used: dict) -> torch.Tensor:
     """The tree's numbers for the port's parameter `name` (slice g of a
-    stacked leaf for ``blocks.<g>.…``), as a CPU tensor."""
+    stacked leaf for ``blocks.<g>.…`` and ``encoder.<g>.…``), as a CPU
+    tensor; counts the leaf's use in `used`."""
     parts = tuple(name.split("."))
-    if parts[0] == "blocks":
-        path, index = ("blocks",) + parts[2:], int(parts[1])
+    if parts[0] in STACKED:
+        path, index = (parts[0],) + parts[2:], int(parts[1])
     else:
         path, index = parts, None
     if path not in leaves:
         raise KeyError(f"no leaf {'.'.join(path)} for parameter {name}")
-    used.add(path)
+    used[path] = used.get(path, 0) + 1
     return _tensor(leaves[path] if index is None else leaves[path][index])
 
 
 def _fill(tree, named: dict, what: str, dtype=None) -> None:
     """Copy the leaves of `tree` into the tensors of `named` (name ->
     tensor), each leaf in `dtype` or its tensor's dtype.  Raises on a
-    missing or unused leaf, or a shape or dtype that does not match."""
+    missing or unused leaf (or slice of a stacked leaf), or a shape or
+    dtype that does not match."""
     leaves = dict(_leaves(tree))
-    used = set()
+    used = {}
     with torch.no_grad():
         for name, dst in named.items():
             try:
@@ -77,7 +85,9 @@ def _fill(tree, named: dict, what: str, dtype=None) -> None:
                     f"{what}: {name} is {want} {tuple(dst.shape)}, the "
                     f"tree's leaf {src.dtype} {tuple(src.shape)}")
             dst.copy_(src)
-    unused = sorted(".".join(p) for p in set(leaves) - used)
+    unused = sorted(".".join(p) for p in leaves
+                    if used.get(p, 0) != (len(leaves[p]) if p[0] in STACKED
+                                          else 1))
     if unused:
         raise KeyError(f"{what}: leaves with no parameter: {unused}")
 

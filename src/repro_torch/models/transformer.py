@@ -1,18 +1,19 @@
-"""The LM stack (port of `repro.models.transformer`), for the families the
-port has so far: dense attention models (full or local attention, dense
+"""The LM stack (port of `repro.models.transformer`), for every family of
+the registry: dense attention models (full or local attention, dense
 SwiGLU FFNs), Mixture-of-Experts models (`moe` FFNs after `first_dense`
-dense layers), Mamba-2 SSD models (`ssm` blocks) and Griffin hybrids
-(`rglru` and local-attention blocks).
+dense layers), Mamba-2 SSD models (`ssm` blocks), Griffin hybrids
+(`rglru` and local-attention blocks), models with a modality prefix
+(``prefix_embeds`` before the tokens) and encoder-decoder models (an
+encoder of non-causal ``enc`` blocks over ``src_embeds``, whose output
+every decoder block reads through a cross-attention).
 
 The reference groups layers into repeating "pattern" super-blocks and
 scans them; here the groups are an `nn.ModuleList` looped over in Python,
 each group an `nn.ModuleDict` of sub-blocks ``sub0 ... sub{P-1}``.
 Parameter names mirror the reference's tree (``blocks.<g>.sub<j>.mix.q.w``
-is the reference's ``blocks.sub<j>.mix.q.w[g]``).  The reference's
-sharding hook (`constrain`) is the identity on one device and is dropped.
-
-Not ported yet, and raising `NotImplementedError` (ROADMAP queue 1 item
-6): encoder-decoder models and modality frontends.
+is the reference's ``blocks.sub<j>.mix.q.w[g]``, ``encoder.<i>.mix.q.w``
+its ``encoder.mix.q.w[i]``).  The reference's sharding hook (`constrain`)
+is the identity on one device and is dropped.
 
 Modes:
   train    - full sequence, loss-ready logits (with `remat`, each group is
@@ -67,28 +68,19 @@ def _ffn_kind(cfg: ModelConfig, i: int) -> str:
     return "dense" if cfg.d_ff else "none"
 
 
-def _check_ported(cfg: ModelConfig):
-    """Raise for the parts of the reference's LM stack not ported yet."""
-    todo = "is not ported yet (ROADMAP queue 1 item 6)"
-    if cfg.encoder_layers:
-        raise NotImplementedError(f"{cfg.name}: the encoder of an "
-                                  f"encoder-decoder model {todo}")
-    if cfg.frontend:
-        raise NotImplementedError(f"{cfg.name}: the {cfg.frontend} frontend "
-                                  f"(prefix embeddings) {todo}")
-
-
 # --- single sub-block --------------------------------------------------------
 
 class Block(nn.Module):
     """One pre-norm sub-block: the mixer of its kind (attention, SSM or
-    RG-LRU), then the FFN, dense or MoE (`_sub_init`)."""
+    RG-LRU), with `cross` a cross-attention to the encoder's output, then
+    the FFN, dense or MoE (`_sub_init`)."""
 
-    def __init__(self, cfg: ModelConfig, kind: str, ffn: str, device=None):
+    def __init__(self, cfg: ModelConfig, kind: str, ffn: str, device=None,
+                 cross: bool = False):
         super().__init__()
         dtype = cfg.torch_dtype
         self.norm1 = L.RMSNorm(cfg.d_model, device)
-        if kind in ("attn", "local"):
+        if kind in ("attn", "local", "enc"):
             self.mix = L.Attention(_attn_cfg(cfg, "naive", kind), dtype,
                                    device)
         elif kind == "rglru":
@@ -97,6 +89,12 @@ class Block(nn.Module):
             self.mix = SSM(cfg.d_model, cfg.ssm, dtype, device)
         else:
             raise ValueError(kind)
+        if cross:
+            self.norm_x = L.RMSNorm(cfg.d_model, device)
+            self.cross = L.Attention(_attn_cfg(cfg, "naive", "enc"), dtype,
+                                     device)
+        else:
+            self.norm_x = self.cross = None
         if ffn == "dense":
             self.norm2 = L.RMSNorm(cfg.d_model, device)
             self.ffn = L.SwiGLU(cfg.d_model, cfg.d_ff, dtype, cfg.use_bias,
@@ -109,14 +107,17 @@ class Block(nn.Module):
 
 
 def _sub_apply(p: Block, cfg: ModelConfig, kind: str, ffn: str, impl: str,
-               x, positions, inv_freq, cache):
+               x, positions, inv_freq, cache, memory=None):
     """One sub-block: (x, aux loss), the aux loss an fp32 scalar tensor
-    from an MoE FFN and None otherwise."""
+    from an MoE FFN and None otherwise.  A block with a cross-attention
+    reads `memory` [B, Sm, D] (the encoder's output) through it, on the
+    naive path, as the reference routes every cross-attention."""
     h = L.rmsnorm(p.norm1, x, cfg.norm_eps)
+    acfg = _attn_cfg(cfg, impl, kind)
     aux = None
-    if kind in ("attn", "local"):
-        mixed, _ = L.attention_apply(p.mix, _attn_cfg(cfg, impl, kind), h,
-                                     positions, inv_freq, cache)
+    if kind in ("attn", "local", "enc"):
+        mixed, _ = L.attention_apply(p.mix, acfg, h, positions, inv_freq,
+                                     cache)
     elif kind == "rglru":
         mixed, _ = rglru_apply(p.mix, h, cfg.rglru, cache,
                                use_kernel=impl == "kernel")
@@ -124,6 +125,11 @@ def _sub_apply(p: Block, cfg: ModelConfig, kind: str, ffn: str, impl: str,
         mixed, _ = ssm_apply(p.mix, h, cfg.ssm, cfg.d_model, cache,
                              use_kernel=impl == "kernel")
     x = x + mixed
+    if p.cross is not None and memory is not None:
+        hx = L.rmsnorm(p.norm_x, x, cfg.norm_eps)
+        xa, _ = L.attention_apply(p.cross, acfg, hx, positions, inv_freq,
+                                  None, kv_memory=memory)
+        x = x + xa
     if ffn == "dense":
         h2 = L.rmsnorm(p.norm2, x, cfg.norm_eps)
         x = x + L.swiglu(p.ffn, h2)
@@ -170,11 +176,12 @@ class Transformer(nn.Module):
 
     def __init__(self, cfg: ModelConfig, device=None):
         super().__init__()
-        _check_ported(cfg)
         pre, groups, P, post = _segments(cfg)
+        cross = cfg.encoder_layers > 0
 
         def block(i):
-            return Block(cfg, _layer_kind(cfg, i), _ffn_kind(cfg, i), device)
+            return Block(cfg, _layer_kind(cfg, i), _ffn_kind(cfg, i), device,
+                         cross)
 
         self.embed = nn.Parameter(torch.empty(
             cfg.vocab_size, cfg.d_model, dtype=cfg.torch_dtype, device=device))
@@ -183,6 +190,9 @@ class Transformer(nn.Module):
             nn.ModuleDict({f"sub{j}": block(cfg.first_dense + j)
                            for j in range(P)}) for _ in range(groups)])
         self.postlude = nn.ModuleList([block(i) for i in post])
+        self.encoder = nn.ModuleList([
+            Block(cfg, "enc", "dense", device)
+            for _ in range(cfg.encoder_layers)])
         self.final_norm = L.RMSNorm(cfg.d_model, device)
         self.lm_head = None if cfg.tie_embeddings else nn.Parameter(
             torch.empty(cfg.d_model, cfg.vocab_size, dtype=cfg.torch_dtype,
@@ -216,7 +226,6 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, device=None):
     """Zeroed KV / state caches in the reference's layout: ``prelude`` /
     ``postlude`` lists of per-layer dicts and ``blocks.sub<j>`` dicts
     stacked over the groups."""
-    _check_ported(cfg)
     device = resolve_device(device)
     dtype = cfg.torch_dtype
     pre, groups, P, post = _segments(cfg)
@@ -238,14 +247,23 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, device=None):
 def forward(params: Transformer, cfg: ModelConfig, batch: dict,
             mode: str = "train", cache=None, attn_impl: str = "chunked",
             remat: bool = True):
-    """batch: tokens [B, S].  Returns (logits, cache, aux_loss); `cache`
-    (prefill, decode) is updated in place and returned.  The aux loss is
-    the fp32 sum of the MoE FFNs' load-balance losses (0 without MoE).
-    With `remat` in train mode, each scanned group's activations are
-    recomputed in the backward pass, as the reference's `jax.checkpoint`
-    of its scan body (only where autograd records)."""
+    """batch: tokens [B, S_tok], with a frontend ``prefix_embeds`` [B, P, D]
+    (placed before the tokens' embeddings; the logits cover only the
+    tokens outside decode), with an encoder ``src_embeds`` [B, Sm, D]
+    (encoded at positions 0..Sm-1 with `attn_impl`) or the encoder's
+    output ``memory`` [B, Sm, D].  Returns (logits, cache, aux_loss);
+    `cache` (prefill, decode) is updated in place and returned.  The aux
+    loss is the fp32 sum of the MoE FFNs' load-balance losses (0 without
+    MoE).  With `remat` in train mode, each scanned group's activations
+    are recomputed in the backward pass, as the reference's
+    `jax.checkpoint` of its scan body (only where autograd records)."""
+    dtype = cfg.torch_dtype
     tokens = batch["tokens"]
+    S_tok = tokens.shape[1]
     x = params.embed[tokens]
+    prefixed = bool(cfg.frontend) and "prefix_embeds" in batch
+    if prefixed:
+        x = torch.cat([batch["prefix_embeds"].to(dtype), x], dim=1)
     B, S, D = x.shape
     dev = x.device
     if mode == "decode":
@@ -260,9 +278,18 @@ def forward(params: Transformer, cfg: ModelConfig, batch: dict,
     use_cache = cache is not None
     aux_total = torch.zeros((), dtype=torch.float32, device=dev)
 
+    memory = batch.get("memory")
+    if cfg.encoder_layers and memory is None and "src_embeds" in batch:
+        memory = batch["src_embeds"].to(dtype)
+        mpos = torch.arange(memory.shape[1], dtype=torch.int32,
+                            device=dev)[None, :].repeat(B, 1)
+        for p in params.encoder:
+            memory, _ = _sub_apply(p, cfg, "enc", "dense", attn_impl, memory,
+                                   mpos, inv_freq, None)
+
     def run_sub(p, i, x, c):
         return _sub_apply(p, cfg, _layer_kind(cfg, i), _ffn_kind(cfg, i),
-                          attn_impl, x, positions, inv_freq, c)
+                          attn_impl, x, positions, inv_freq, c, memory)
 
     def add(total, aux):
         return total if aux is None else total + aux
@@ -296,6 +323,8 @@ def forward(params: Transformer, cfg: ModelConfig, batch: dict,
     x, aux_total = run_listed("postlude", post, x, aux_total)
 
     x = L.rmsnorm(params.final_norm, x, cfg.norm_eps)
+    if prefixed and mode != "decode":
+        x = x[:, -S_tok:]   # logits only over the token positions
     head = params.embed.T if cfg.tie_embeddings else params.lm_head
     logits = x @ head
     return logits, cache, aux_total

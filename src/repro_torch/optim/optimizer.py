@@ -54,10 +54,11 @@ def schedule_lr(cfg: OptConfig, step) -> torch.Tensor:
 def decays(name: str, param: torch.Tensor) -> bool:
     """Whether AdamW decays the parameter `name`: where its leaf on the
     reference's tree has more than one dim.  The reference stacks the
-    scanned ``blocks`` with a leading group dim, so there every leaf,
-    norm scales and 1-D recurrent leaves included, is decayed; the same
-    leaves in the prelude, the postlude and ``final_norm`` are not."""
-    return param.dim() + name.startswith("blocks.") > 1
+    scanned ``blocks`` with a leading group dim and the ``encoder`` with
+    a leading layer dim, so there every leaf, norm scales and 1-D
+    recurrent leaves included, is decayed; the same leaves in the
+    prelude, the postlude and ``final_norm`` are not."""
+    return param.dim() + name.startswith(("blocks.", "encoder.")) > 1
 
 
 def init_opt_state(model) -> dict:

@@ -30,7 +30,7 @@ from repro_torch.kernels.rglru import ops as rglru_ops
 from repro_torch.kernels.rglru import rglru_scan_ref
 from repro_torch.kernels.ssd_scan import ops as ssd_ops
 from repro_torch.kernels.ssd_scan import ssd_ref
-from repro_torch.launch.serve import generate
+from repro_torch.launch.serve import draw_batch, generate
 from repro_torch.models import transformer as TF
 
 pytestmark = pytest.mark.cuda
@@ -473,25 +473,28 @@ def test_rglru_ring_kernel_equals_direct_kernel(cuda, B, S, R, const,
 
 
 @pytest.mark.parametrize("arch", ["llama3.2-3b", "mamba2-780m",
-                                  "recurrentgemma-2b", "deepseek-moe-16b"])
+                                  "recurrentgemma-2b", "deepseek-moe-16b",
+                                  "phi-3-vision-4.2b", "seamless-m4t-medium"])
 def test_serve_smoke_model_on_card_equals_cpu(cuda, arch):
-    """The same fp32 weights on both devices: equal greedy tokens, prefill
-    logits within 1e-4 relative (the card sums in other orders)."""
+    """The same fp32 weights and inputs (phi-3-vision's prefix rows,
+    seamless's source frames) on both devices: equal greedy tokens,
+    prefill logits within 1e-4 relative (the card sums in other
+    orders)."""
     cfg = dataclasses.replace(get_config(arch + "-smoke"), dtype="float32")
     cpu = TF.init_params(cfg, torch.Generator().manual_seed(1), device="cpu")
     card = copy.deepcopy(cpu).to(cuda)
-    toks = np.random.default_rng(2).integers(0, cfg.vocab_size, (2, 40))
-    outs = [generate(m, cfg, {"tokens": toks}, 8, prefill_impl="kernel",
+    batch = draw_batch(cfg, 2, 40, seed=2)
+    outs = [generate(m, cfg, batch, 8, prefill_impl="kernel",
                      device=d)[0].cpu() for m, d in ((card, cuda),
                                                      (cpu, "cpu"))]
     assert torch.equal(outs[0], outs[1])
     logits = []
     with torch.inference_mode():
         for m, d in ((card, cuda), (cpu, "cpu")):
-            cache = TF.init_cache(cfg, 2, 40, device=d)
-            logits.append(TF.forward(m, cfg, {"tokens": torch.as_tensor(
-                toks).to(d)}, "prefill", cache=cache,
-                attn_impl="kernel")[0].cpu())
+            cache = TF.init_cache(cfg, 2, 40 + cfg.num_prefix, device=d)
+            logits.append(TF.forward(m, cfg, {
+                k: torch.as_tensor(v).to(d) for k, v in batch.items()},
+                "prefill", cache=cache, attn_impl="kernel")[0].cpu())
     assert _rel(logits[0], logits[1]) < 1e-4
 
 

@@ -344,29 +344,21 @@ def test_serve_main_runs_on_cpu_and_needs_cuda_by_default(capsys):
             params_from_jax({}, treg.get_config("llama3.2-3b-smoke"))
 
 
-@pytest.mark.parametrize("arch", ["deepseek-moe-16b", "seamless-m4t-medium",
-                                  "phi-3-vision-4.2b"])
-def test_unported_families_raise(arch):
-    """The encoder and the vision frontend raise until they are ported.
-    The MoE family is ported: deepseek-moe-16b's smoke model (a dense
-    prelude layer, then MoE blocks) gives the reference's train logits
-    and aux loss, fp32, at 1e-5."""
-    if arch == "deepseek-moe-16b":
-        cfg, params, tcfg, model = _models(arch, "float32", seed=9)
-        toks = _tokens(cfg, 2, 16, seed=10)
-        want, _, want_aux = JTF.forward(
-            params, cfg, {"tokens": jnp.asarray(toks)}, "train",
-            attn_impl="naive", remat=False)
-        with torch.no_grad():
-            got, _, aux = TTF.forward(model, tcfg,
-                                      {"tokens": torch.from_numpy(toks)},
-                                      "train", attn_impl="naive")
-        assert _err(_np(got), want) < 1e-5
-        assert float(aux) > 0 and _err(_np(aux), want_aux) < 1e-5
-        return
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TTF.init_params(treg.get_config(arch + "-smoke"), torch.Generator(),
-                        device="cpu")
+def test_moe_family_matches_the_reference():
+    """deepseek-moe-16b's smoke model (a dense prelude layer, then MoE
+    blocks) gives the reference's train logits and aux loss, fp32, at
+    1e-5."""
+    cfg, params, tcfg, model = _models("deepseek-moe-16b", "float32", seed=9)
+    toks = _tokens(cfg, 2, 16, seed=10)
+    want, _, want_aux = JTF.forward(
+        params, cfg, {"tokens": jnp.asarray(toks)}, "train",
+        attn_impl="naive", remat=False)
+    with torch.no_grad():
+        got, _, aux = TTF.forward(model, tcfg,
+                                  {"tokens": torch.from_numpy(toks)},
+                                  "train", attn_impl="naive")
+    assert _err(_np(got), want) < 1e-5
+    assert float(aux) > 0 and _err(_np(aux), want_aux) < 1e-5
 
 
 def test_params_from_jax_rejects_a_tree_that_does_not_fit():
