@@ -171,7 +171,27 @@ Phases (any failure ends the run with a nonzero exit):
    served at full width as in phase 10, every flash launch on the
    tensor-core kernel, with the parameter count read from the module;
    the logits check in bf16 (2e-2) and over the whole model in fp32
-   (1e-3).
+   (1e-3);
+18. the sharded step and the dry-run (no TPU kernel's counterpart runs
+   here: chunked attention, and the kernels refuse autograd): (a) an
+   NCCL process group of one rank (a `FileStore` under `build/`),
+   `make_host_mesh(model=1)`, and minicpm-2b at full width through
+   `Trainer(..., mesh=...)` at the launcher's batch 8 x 128, 3 steps,
+   held to the plain `Trainer` on the same weights and batches (run first,
+   its parameters moved to the host): metrics 1e-5 relative, parameters
+   1e-5 absolute; both steps' median times side by side (DTensor's host
+   cost), peak memory and kernels a step; (b) `lower_cell` for the same
+   model, batch and a (1, 1) mesh on `cuda` fake tensors, held to the real
+   sharded step: argument bytes equal to the real params, state and
+   batch, predicted peak (argument + temp) within 10 % of step 2's
+   `max_memory_allocated`, FLOPs within 0.1 % of `FlopCounterMode` over a
+   real step; (c) the production-mesh cells of `DRYRUN_CELLS` at 256 and
+   512 ranks (a fake process group): each `ok` with FLOPs and temp bytes
+   above 0 and 256 / 512 chips, or skipped where `cell_applicable` says
+   so; the multi-pod train cells move bytes on "pod"; (d) the port's
+   collectives and `pod_compressed_psum` bound to NCCL at one rank (their
+   n = 1 path: the result is the input); their cross-rank results are
+   held on the CPU only, by 8 gloo ranks (`tests/test_torch_collectives.py`).
 
 Then one JSON line of kernel numbers (the netsim entries with the launches
 of every path, phases 4 and 12-14, in `by_path`; the flash entry's
@@ -2839,6 +2859,244 @@ def phase_train_full(device):
                 peak=peak, against_fp32=rel)
 
 
+# phase 18: the sharded step and the dry-run
+SHARDED_STEPS = 3
+DRYRUN_PEAK_GAP, DRYRUN_FLOPS_GAP = 0.10, 1e-3
+DRYRUN_JOBS = 8         # worker processes tracing the cells at once
+DRYRUN_CELLS = tuple(
+    [("minicpm-2b", shape, multi) for shape in
+     ("train_4k", "prefill_32k", "decode_32k", "long_500k")
+     for multi in (False, True)]
+    + [("deepseek-moe-16b", "train_4k", multi) for multi in (False, True)]
+    + [("mamba2-780m", "long_500k", False),
+       ("recurrentgemma-2b", "long_500k", False),
+       ("phi-3-vision-4.2b", "prefill_32k", False),
+       ("seamless-m4t-medium", "prefill_32k", False)])
+
+
+@contextlib.contextmanager
+def nccl_rank(tag):
+    """An NCCL process group of one rank over a `FileStore` under
+    `build/dist/`; destroyed on exit."""
+    import torch
+    import torch.distributed as dist
+    store = ROOT / "build" / "dist" / f"{tag}.store"
+    store.parent.mkdir(parents=True, exist_ok=True)
+    if store.exists():
+        store.unlink()
+    dist.init_process_group("nccl", store=dist.FileStore(str(store), 1),
+                            rank=0, world_size=1,
+                            device_id=torch.device("cuda", 0))
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+
+
+def _local_bytes(tree) -> int:
+    from torch.distributed.tensor import DTensor
+    if isinstance(tree, dict):
+        return sum(_local_bytes(v) for v in tree.values())
+    t = tree.to_local() if isinstance(tree, DTensor) else tree
+    return t.numel() * t.element_size()
+
+
+def _kernels_a_step(tr):
+    """One more step of trainer `tr` under torch.profiler: the CUDA
+    kernels it launches."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        tr.run(1)
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    attr = ("self_device_time_total"
+            if hasattr(events[0], "self_device_time_total")
+            else "self_cuda_time_total")
+    return sum(e.count for e in events if getattr(e, attr) > 0
+               and e.device_type == torch.autograd.DeviceType.CUDA)
+
+
+def phase_sharded_step(device):
+    """18(a): minicpm-2b at full width, the plain `Trainer` then
+    `Trainer(..., mesh=make_host_mesh(model=1))` on an NCCL rank, from the
+    same seed and batches (`SHARDED_STEPS` steps); then, on the sharded
+    trainer, step 2's peak is its own, one step under `FlopCounterMode`
+    and one under torch.profiler (the plain trainer too).  Returns the
+    real numbers phase 18(b) predicts."""
+    import statistics
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.pipeline import SyntheticTokens
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.optim.optimizer import OptConfig
+    from repro_torch.runtime.trainer import Trainer, TrainSetup, full
+    arg = dict(zip(TRAIN_FULL[::2], TRAIN_FULL[1::2]))
+    B, S = int(arg["--batch"]), int(arg["--seq"])
+    cfg = get_config(arg["--arch"])
+    setup = TrainSetup(model=cfg, opt=OptConfig(
+        lr=float(arg["--lr"]), warmup_steps=1, total_steps=SHARDED_STEPS,
+        schedule=cfg.schedule), attn_impl="chunked", remat=True)
+    torch.cuda.empty_cache()
+    tr = Trainer(setup, SyntheticTokens(cfg.vocab_size, B, S),
+                 device=device)
+    plain_hist = tr.run(SHARDED_STEPS)
+    plain_ms = statistics.median(tr.step_times[1:]) * 1e3
+    plain = {n: p.detach().cpu() for n, p in tr.model.named_parameters()}
+    plain_kernels = _kernels_a_step(tr)
+    del tr
+    torch.cuda.empty_cache()
+    with nccl_rank("sharded_step"):
+        mesh = make_host_mesh(model=1)
+        tr = Trainer(setup, SyntheticTokens(cfg.vocab_size, B, S),
+                     device=device, mesh=mesh)
+        tr.run(1)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        tr.run(SHARDED_STEPS - 1)
+        peak = torch.cuda.max_memory_allocated()
+        hist = tr.history
+        metric = max(abs(a[k] - b[k]) / max(abs(b[k]), 1e-30)
+                     for a, b in zip(hist, plain_hist) for k in b)
+        param = max(float((full(p).detach().cpu() - plain[n]).abs().max())
+                    for n, p in tr.model.named_parameters())
+        check(metric < 1e-5 and param < 1e-5,
+              f"sharded {cfg.name} on a one-rank mesh against the plain "
+              f"step: metrics relative {metric}, parameters {param}")
+        sharded_ms = statistics.median(tr.step_times[1:]) * 1e3
+        arg_bytes = (_local_bytes(dict(tr.model.named_parameters()))
+                     + _local_bytes(tr.opt_state)
+                     + 2 * B * S * 4)      # tokens and labels, int32
+        with FlopCounterMode(display=False) as fc:
+            tr.run(1)
+        flops = fc.get_total_flops()
+        kernels = _kernels_a_step(tr)
+        del tr
+        torch.cuda.empty_cache()
+        phase_collectives_nccl(device)
+    print(f"[sharded] {cfg.name} full width, batch {B} x {S}, "
+          f"{SHARDED_STEPS} steps on a (1, 1) NCCL mesh against the plain "
+          f"Trainer: metrics relative {metric:.3e}, parameters largest "
+          f"{param:.3e}; step ms median plain {plain_ms:.2f}, sharded "
+          f"{sharded_ms:.2f} (DTensor's host cost "
+          f"{sharded_ms - plain_ms:+.2f} ms); kernels a step plain "
+          f"{plain_kernels}, sharded {kernels}; step 2 peak {peak} bytes "
+          f"({held} held before it); FLOPs a step {flops}")
+    return dict(B=B, S=S, arch=cfg.name, arg_bytes=arg_bytes, peak=peak,
+                flops=flops, plain_ms=plain_ms, sharded_ms=sharded_ms,
+                kernels=kernels, plain_kernels=plain_kernels)
+
+
+def phase_collectives_nccl(device):
+    """18(d): each collective of `core/collectives.py` and
+    `pod_compressed_psum` bound to NCCL at one rank: the n = 1 path,
+    whose result is the input (with the int8 round trip for the pod
+    sum).  One card holds no second NCCL rank: the cross-rank results are
+    held on the CPU only, by 8 gloo ranks
+    (`tests/test_torch_collectives.py`)."""
+    import torch
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.core import collectives as C
+    from repro_torch.optim.compression import (decompress,
+                                               pod_compressed_psum)
+    mesh = init_device_mesh("cuda", (1, 1), mesh_dim_names=("data", "model"))
+    x = torch.randn(8, 36, device=device,
+                    generator=torch.Generator(device).manual_seed(5))
+    outs = {"ring": C.ring_all_reduce(x, mesh, "model"),
+            "bidir": C.bidir_ring_all_reduce(x, mesh, "model"),
+            "hierarchical": C.hierarchical_psum(x, mesh, "model", "data"),
+            "2d": C.psum_2d(x, mesh, "model", "data"),
+            "reduce_scatter": C.reduce_scatter(x, mesh, "model"),
+            "all_gather": C.all_gather(x, mesh, "data")}
+    for name, y in outs.items():
+        check(torch.equal(y, x), f"collective {name} at one NCCL rank "
+                                 f"is not the identity")
+    pod = init_device_mesh("cuda", (1, 1), mesh_dim_names=("pod", "data"))
+    err = {"w": torch.zeros_like(x)}
+    summed, new_err = pod_compressed_psum({"w": x}, err, mesh=pod)
+    q = torch.clamp(torch.round(x / (x.abs().max() / 127.0)), -127, 127)
+    check(torch.equal(summed["w"], decompress(q, x.abs().max() / 127.0))
+          and torch.equal(new_err["w"], x - summed["w"]),
+          "pod_compressed_psum at one NCCL rank")
+    torch.cuda.synchronize()
+    print(f"[sharded] collectives on NCCL at one rank: {sorted(outs)} and "
+          f"pod_compressed_psum == their one-rank results")
+
+
+def phase_dryrun_predictions(real):
+    """18(b): the dry-run of phase 18(a)'s step (same model, batch 8 x
+    128, a (1, 1) mesh, `cuda` fake tensors) against the real step."""
+    from repro_torch.launch.dryrun import lower_cell
+    t0 = time.perf_counter()
+    art = lower_cell(real["arch"], "train_4k", False, mesh_shape=(1, 1),
+                     device="cuda", batch=real["B"], seq_len=real["S"])
+    wall = time.perf_counter() - t0
+    mem = art["memory"]
+    predicted = mem["argument_size_in_bytes"] + mem["temp_size_in_bytes"]
+    peak_gap = (predicted - real["peak"]) / real["peak"]
+    flops_gap = (art["flops"] - real["flops"]) / real["flops"]
+    check(mem["argument_size_in_bytes"] == real["arg_bytes"],
+          f"dry-run argument bytes {mem['argument_size_in_bytes']} != the "
+          f"real step's {real['arg_bytes']}")
+    check(abs(peak_gap) <= DRYRUN_PEAK_GAP,
+          f"dry-run peak {predicted} vs the real step's {real['peak']}: "
+          f"{peak_gap:+.2%}")
+    check(abs(flops_gap) <= DRYRUN_FLOPS_GAP,
+          f"dry-run FLOPs {art['flops']} vs FlopCounterMode's "
+          f"{real['flops']}: {flops_gap:+.3%}")
+    print(f"[dryrun] {real['arch']} batch {real['B']} x {real['S']} on a "
+          f"(1, 1) mesh against the real sharded step: argument bytes "
+          f"{mem['argument_size_in_bytes']} == {real['arg_bytes']}; "
+          f"predicted peak {predicted} vs max_memory_allocated "
+          f"{real['peak']} ({peak_gap:+.3%}); FLOPs {art['flops']:.6e} vs "
+          f"{real['flops']:.6e} ({flops_gap:+.4%}); traced in {wall:.2f} s")
+    return dict(peak_gap=peak_gap, flops_gap=flops_gap)
+
+
+def phase_dryrun_cells():
+    """18(c): `DRYRUN_CELLS` at 256 / 512 ranks on `cuda` fake tensors,
+    traced by `DRYRUN_JOBS` worker processes at once (each its own fake
+    process group)."""
+    from repro_torch.configs.base import shape_by_name
+    from repro_torch.configs.registry import cell_applicable, get_config
+    from repro_torch.launch.dryrun import run_cells
+    out = {}
+    t0 = time.perf_counter()
+    arts = dict(run_cells(DRYRUN_CELLS, DRYRUN_JOBS, device="cuda"))
+    wall = time.perf_counter() - t0
+    print(f"[dryrun] {len(DRYRUN_CELLS)} production-mesh cells traced in "
+          f"{wall:.1f} s by {DRYRUN_JOBS} processes")
+    for arch, shape, multi in DRYRUN_CELLS:
+        art = arts[(arch, shape, multi)]
+        tag = f"{arch} x {shape} x {'multi' if multi else 'single'}"
+        ok, why = cell_applicable(get_config(arch), shape_by_name(shape))
+        if not ok:
+            check(art["status"] == "skipped" and art["reason"] == why,
+                  f"dry-run {tag}: {art}")
+            print(f"[dryrun] {tag}: skipped ({why})")
+            continue
+        check(art["status"] == "ok", f"dry-run {tag}: {art}")
+        chips = 512 if multi else 256
+        mem, coll = art["memory"], art["collectives"]["by_axis"]
+        check(art["chips"] == chips and art["flops"] > 0
+              and mem["temp_size_in_bytes"] > 0,
+              f"dry-run {tag}: chips {art['chips']}, flops {art['flops']}, "
+              f"temp {mem['temp_size_in_bytes']}")
+        if multi and art["kind"] == "train":
+            check(coll.get("pod", 0) > 0,
+                  f"dry-run {tag}: no bytes on pod ({coll})")
+        out[tag] = art
+        print(f"[dryrun] {tag}: flops {art['flops']:.4e}, argument "
+              f"{mem['argument_size_in_bytes']} B, temp "
+              f"{mem['temp_size_in_bytes']} B, collectives {coll}, "
+              f"{art['collectives']['num_ops']} ops; placed in "
+              f"{art['t_lower_s']} s, traced in {art['t_compile_s']} s")
+    return out
+
+
 def kernel_entry(name, source, replaces, launches, err, t):
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches, "max_abs_err": err,
@@ -2929,6 +3187,10 @@ def main(argv=None):
     served[arch] = phase_serve(device, arch, S, profile=args.profile)
     for arch, S in FRONTEND_SERVE:
         served[arch] = phase_serve(device, arch, S, profile=args.profile)
+    torch.cuda.empty_cache()
+    real = phase_sharded_step(device)
+    dryrun_gaps = phase_dryrun_predictions(real)
+    dryrun_cells = phase_dryrun_cells()
     # the netsim kernels: the coop kernel's numbers, the three-pass
     # kernel's time on the same inputs beside them
     grant_entry = kernel_entry(
@@ -3032,6 +3294,8 @@ def main(argv=None):
             launches=served["seamless-m4t-medium"]["flash_attention"])}
     print(f"[train] summary: smoke card vs CPU {train_err}; minicpm-2b "
           f"full width {train_full}")
+    print(f"[dryrun] summary: sharded step {real}; predictions "
+          f"{dryrun_gaps}; {len(dryrun_cells)} production-mesh cells ok")
     print(json.dumps({"kernels": [
         grant_entry,
         cycle_entry,

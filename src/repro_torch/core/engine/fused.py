@@ -79,8 +79,9 @@ def make_fused_step(net: Network, cfg, pattern, inject_mask=None, *,
     NotImplementedError."""
     if shards > 1:
         raise NotImplementedError(
-            "channel sharding of the fused step is not ported to "
-            "repro_torch yet (ROADMAP.md queue 1, item 12)")
+            "channel sharding of the fused step is multi-device "
+            "placement, not ported to repro_torch yet (ROADMAP.md queue "
+            "1, item 7)")
     device = resolve_device(device)
     pattern, inject_mask = as_pattern(pattern, inject_mask)
     consts, route_kernel = build_consts(net, cfg, device=device)

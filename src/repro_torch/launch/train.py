@@ -8,7 +8,9 @@ device, with checkpointing, fault tolerance and straggler monitoring.
 remat; without it the full architecture config trains with `chunked`
 attention and remat, on the card (CUDA unless `main` is given
 ``device="cpu"``).  The production meshes (`--production-mesh`,
-`--multi-pod`) are not ported yet.
+`--multi-pod`: 256 or 512 ranks) are multi-device placement and raise;
+`Trainer(..., mesh=...)` trains sharded on the mesh of a process group,
+and `launch.dryrun` traces the production meshes without weights.
 
 As in the reference, the data stream is wrapped in a `Prefetcher`, and a
 restore rewinds only the inner stream: the batches already queued are

@@ -27,8 +27,12 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.distributed.tensor import Partial, Replicate, Shard
 
 from ..kernels.flash_attention import ops as fa_ops
+from .placement import (batch_placements, gather_inner, gather_inner_grad,
+                        is_dt, like, local, merge_dims, replicated,
+                        split_dim)
 
 MASKED = -1e30      # the reference's masked score
 
@@ -61,7 +65,12 @@ class Dense(nn.Module):
 
 
 def dense(p, x):
-    y = x @ p.w
+    """On a DTensor, a sequence (inner) dim sharded over the mesh is
+    gathered first, as Megatron sequence parallelism does before a
+    projection (DTensor's matrix product takes no shard of a flattened
+    batch x sequence dim)."""
+    x = gather_inner(x)
+    y = gather_inner_grad(x @ p.w)
     if p.b is not None:
         y = y + p.b
     return y
@@ -222,16 +231,102 @@ def attention_apply(p, cfg: AttnConfig, x, positions, inv_freq, cache=None,
                     kv_memory=None):
     """x: [B, S, D].  cache: dict(k, v, idx, base) for prefill / decode,
     updated in place (all four entries) and returned.  kv_memory: [B, Sm, D] for
-    cross-attention (encoder memory); RoPE is skipped for cross-attn."""
+    cross-attention (encoder memory); RoPE is skipped for cross-attn.
+
+    On DTensors the projections are DTensor ops, and RoPE, the cache update
+    and the attention itself run on each rank's shard (`placement.local`)
+    with the batch sharded and the heads split over the "model" mesh dim:
+    where it divides both head counts, q, k, v and the cache come in
+    sharded by head; otherwise they come in whole and each rank attends
+    with its own ceil(H / m) query heads (and their KV heads), the last
+    ranks' heads past H padding that is cut off afterwards, as GSPMD pads
+    an uneven dim.  A cache laid out otherwise gets the updated shards
+    copied back into its own layout."""
     B, S, D = x.shape
     H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    q = dense(p.q, x).reshape(B, S, H, hd)
+    q = split_dim(dense(p.q, x), 2, (H, hd))
     src = kv_memory if kv_memory is not None else x
-    Sk = src.shape[1]
-    k = dense(p.k, src).reshape(B, Sk, KV, hd)
-    v = dense(p.v, src).reshape(B, Sk, KV, hd)
+    k = split_dim(dense(p.k, src), 2, (KV, hd))
+    v = split_dim(dense(p.v, src), 2, (KV, hd))
     cross = kv_memory is not None
+    decode = cache is not None and not cross and S == 1
+    prefill_cache = cache is not None and not cross and S > 1
+    bufs = tuple(cache[n] for n in ("k", "v", "idx", "base")) \
+        if decode or prefill_cache else ()
 
+    heads = None
+
+    def attend(q, k, v, positions, inv_freq, *bufs):
+        o = _attend(cfg, q, k, v, positions, inv_freq, bufs, cross, decode,
+                    prefill_cache, heads)
+        return (o,) + bufs[:2]
+
+    if not is_dt(q):
+        o = attend(q, k, v, positions, inv_freq, *bufs)[0]
+    else:
+        mesh = q.device_mesh
+        pl, split = _core_placements(q, B, H, KV)
+        batch_pl = tuple(r if isinstance(r, Shard) and r.dim == 0
+                         else Replicate() for r in pl)
+        rep = replicated(mesh)
+        o_pl, grad_pl = pl, None
+        if split is not None:
+            # q, k, v whole on this rank; it attends with its heads only
+            dim, n = split
+            heads = (mesh.get_local_rank(dim) * n, n)
+            o_pl = tuple(Shard(2) if i == dim else r
+                         for i, r in enumerate(pl))
+            part = tuple(Partial() if i == dim else r
+                         for i, r in enumerate(pl))
+            grad_pl = (part, part, part, batch_pl, rep) \
+                + (pl, pl, rep, rep)[:len(bufs)]
+        ins = (pl, pl, pl, batch_pl, rep) + (pl, pl, rep, rep)[:len(bufs)]
+        outs = local(attend, (o_pl,) + (pl,) * min(len(bufs), 2), ins,
+                     q, k, v, like(q, positions), like(q, inv_freq), *bufs,
+                     in_grad_placements=grad_pl)
+        o = outs[0]
+        if o.shape[2] > H:
+            o = o[:, :, :H]     # the padding heads
+        for buf, new in zip(bufs[:2], outs[1:]):
+            if tuple(buf.placements) != pl:
+                # the shard was a copy: write it back in the cache's layout
+                buf.copy_(new.redistribute(buf.device_mesh, buf.placements))
+    out = dense(p.o, merge_dims(o, 2))
+    return out, cache if decode or prefill_cache else None
+
+
+def _core_placements(q, B, H, KV):
+    """The local attention's input layout on q's mesh, and how the heads
+    split: the batch (dim 0) is sharded as `placement.batch_placements`
+    says; the "model" mesh dim shards the heads (dim 2) when it divides
+    both H and KV (split None); where it does not, and it does not shard
+    the batch either, it is replicated, with split (that mesh dim,
+    ceil(H / its size)) for the core to take its own heads; every other
+    mesh dim is replicated."""
+    mesh = q.device_mesh
+    names = mesh.mesh_dim_names or ()
+    model = [i for i, name in enumerate(names) if name == "model"
+             and mesh.size(i) > 1]
+    even = [i for i in model if H % mesh.size(i) == 0
+            and KV % mesh.size(i) == 0]
+    pl = tuple(Shard(2) if p is None else p
+               for p in batch_placements(q, B, claimed=even))
+    if even or not model or not isinstance(pl[model[0]], Replicate):
+        # heads sharded, no model dim, or one that shards the batch
+        return pl, None
+    return pl, (model[0], -(-H // mesh.size(model[0])))
+
+
+def _attend(cfg: AttnConfig, q, k, v, positions, inv_freq, bufs, cross,
+            decode, prefill_cache, heads=None):
+    """RoPE, the cache update and the attention of `attention_apply` on
+    plain tensors: q [B, S, H, hd], k / v [B, Sk, KV, hd]; `bufs` the
+    cache's (k, v, idx, base), updated in place.  `heads` (lo, n): the
+    attention runs on the query heads lo ... lo + n - 1 only (those past
+    H repeat the last), each with its KV head: [B, S, n, hd]."""
+    B, S, H, hd = q.shape
+    KV = k.shape[2]
+    Sk = k.shape[1]
     if not cross:
         rot = int(hd * cfg.rope_frac)
         if rot > 0:
@@ -239,13 +334,9 @@ def attention_apply(p, cfg: AttnConfig, x, positions, inv_freq, cache=None,
             k = apply_rope(k, positions, inv_freq, rot)
 
     q_offset = 0
-    decode = cache is not None and not cross and S == 1
-    prefill_cache = cache is not None and not cross and S > 1
     if decode:
         # append one token to the (possibly rolling) cache
-        idx = cache["idx"]          # absolute position of the new token
-        base = cache["base"]
-        ck, cv = cache["k"], cache["v"]
+        ck, cv, idx, base = bufs    # idx: absolute position of the new token
         W = ck.shape[1]
         pos = torch.remainder(idx - base, W) if cfg.window is not None \
             else idx
@@ -259,45 +350,51 @@ def attention_apply(p, cfg: AttnConfig, x, positions, inv_freq, cache=None,
     elif prefill_cache:
         # populate the cache with the (last W) computed k/v; attention
         # below runs on the local k/v, not the buffer
-        W = cache["k"].shape[1]
+        W = bufs[0].shape[1]
         kw = k[:, -W:] if W < Sk else k
         vw = v[:, -W:] if W < Sk else v
         n = kw.shape[1]
-        for buf, new in ((cache["k"], kw), (cache["v"], vw)):
+        for buf, new in ((bufs[0], kw), (bufs[1], vw)):
             buf[:, :n] = new
             buf[:, n:] = 0
-        cache["idx"].fill_(Sk)
-        cache["base"].fill_(max(0, Sk - W))
+        bufs[2].fill_(Sk)
+        bufs[3].fill_(max(0, Sk - W))
 
+    if heads is not None:
+        lo, n = heads
+        pick = torch.clamp(torch.arange(lo, lo + n, device=q.device),
+                           max=H - 1)
+        q, k, v = q[:, :, pick], k[:, :, pick // (H // KV)], \
+            v[:, :, pick // (H // KV)]
+        H = KV = n
     groups = H // KV
     if decode:
         # decode attention: mask out unwritten cache slots
         k = _repeat_kv(k, groups)
         v = _repeat_kv(v, groups)
         W = k.shape[1]
-        kpos = torch.arange(W, device=x.device)
+        kpos = torch.arange(W, device=q.device)
         valid = kpos < torch.clamp(q_offset + 1, max=W)
         scale = 1.0 / math.sqrt(hd)
         logits = torch.einsum("bqhd,bkhd->bhqk", q, k).float() * scale
         logits = torch.where(valid[None, None, None], logits, MASKED)
         pr = torch.softmax(logits, dim=-1)
-        o = torch.einsum("bhqk,bkhd->bqhd", pr.to(v.dtype), v)
-    elif cfg.attn_impl == "naive" or cross:
-        o = naive_attention(q, _repeat_kv(k, groups), _repeat_kv(v, groups),
-                            causal=cfg.causal and not cross,
-                            window=cfg.window)
-    elif cfg.attn_impl == "chunked":
-        o = chunked_attention(q, _repeat_kv(k, groups), _repeat_kv(v, groups),
-                              causal=cfg.causal, window=cfg.window,
-                              chunk_q=cfg.chunk_q, chunk_k=cfg.chunk_k)
-    elif cfg.attn_impl == "kernel":
+        return torch.einsum("bhqk,bkhd->bqhd", pr.to(v.dtype), v)
+    if cfg.attn_impl == "naive" or cross:
+        return naive_attention(q, _repeat_kv(k, groups),
+                               _repeat_kv(v, groups),
+                               causal=cfg.causal and not cross,
+                               window=cfg.window)
+    if cfg.attn_impl == "chunked":
+        return chunked_attention(q, _repeat_kv(k, groups),
+                                 _repeat_kv(v, groups), causal=cfg.causal,
+                                 window=cfg.window, chunk_q=cfg.chunk_q,
+                                 chunk_k=cfg.chunk_k)
+    if cfg.attn_impl == "kernel":
         # the kernel reads KV head h // groups itself: no expansion
-        o = fa_ops.flash_attention(q, k, v, causal=cfg.causal,
-                                   window=cfg.window)
-    else:
-        raise ValueError(cfg.attn_impl)
-    out = dense(p.o, o.reshape(B, S, H * hd))
-    return out, cache if decode or prefill_cache else None
+        return fa_ops.flash_attention(q, k, v, causal=cfg.causal,
+                                      window=cfg.window)
+    raise ValueError(cfg.attn_impl)
 
 
 # --- FFN ---------------------------------------------------------------------

@@ -21,10 +21,12 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.distributed.tensor import Partial, Replicate, Shard
 
 from ..configs.base import SSMConfig
 from ..kernels.ssd_scan import ops as ssd_ops
 from .layers import Dense, RMSNorm, dense, rmsnorm, truncated_normal
+from .placement import batch_placements, is_dt, local, replicated
 
 
 class SSM(nn.Module):
@@ -173,26 +175,111 @@ def ssm_apply(p: SSM, x, scfg: SSMConfig, d_model: int, cache=None,
     """Full mamba2 block.  cache: dict(conv, state) for prefill / decode,
     updated in place and returned.  `use_kernel` runs the sequence scan
     (no cache or S > 1) through `ssd_ops.ssd_scan`; the decode step is the
-    exact single-step recurrence either way."""
-    B, S, D = x.shape
+    exact single-step recurrence either way.
+
+    On DTensors the projections are DTensor ops and the rest runs on each
+    rank's batch shard (`placement.local`), the cache's shards copied back
+    into its own layout where that differs.  Without a cache, a "model"
+    mesh dim that does not shard the batch splits the heads: each rank
+    takes its ceil(H / m) heads' columns of the packed projection (which
+    do not split by head as they lie) and of the conv, scans them, and
+    the inner norm runs over the gathered heads (the last ranks' heads
+    past H are padding, cut off before it)."""
+    proj = dense(p.in_proj, x)
+    bufs = (cache["conv"], cache["state"]) if cache is not None else ()
+    heads = None
+
+    def mix(proj, conv_w, conv_b, dt_bias, A_log, Dskip, norm_scale, *bufs):
+        return _ssm_mix(proj, conv_w, conv_b, dt_bias, A_log, Dskip,
+                        norm_scale, scfg, d_model, bufs, use_kernel, heads)
+
+    args = (proj, p.conv_w, p.conv_b, p.dt_bias, p.A_log, p.D, p.norm.scale)
+    if not is_dt(proj):
+        y = mix(*args, *bufs)[0]
+    else:
+        mesh = proj.device_mesh
+        batch = batch_placements(proj, proj.shape[0])
+        rep = replicated(mesh)
+        # a weight's gradient is the sum of each batch shard's
+        summed = tuple(Partial() if isinstance(b, Shard) else Replicate()
+                       for b in batch)
+        y_pl, proj_grad = batch, batch
+        names = mesh.mesh_dim_names or ()
+        model = [i for i, name in enumerate(names) if name == "model"
+                 and mesh.size(i) > 1 and isinstance(batch[i], Replicate)]
+        if model and not bufs:
+            dim = model[0]
+            n = -(-scfg.num_heads(d_model) // mesh.size(dim))
+            heads = (mesh.get_local_rank(dim) * n, n)
+            y_pl = tuple(Shard(2) if i == dim else b
+                         for i, b in enumerate(batch))
+            proj_grad = tuple(Partial() if i == dim else b
+                              for i, b in enumerate(batch))
+            summed = tuple(Partial() if i == dim else b
+                           for i, b in enumerate(summed))
+        outs = local(mix, (y_pl,) + (batch,) * len(bufs),
+                     (batch,) + (rep,) * 6 + (batch,) * len(bufs),
+                     *args, *bufs,
+                     in_grad_placements=(proj_grad,) + (summed,) * 6
+                     + (batch,) * len(bufs))
+        y = outs[0]
+        if heads is not None:
+            di = scfg.d_inner(d_model)
+            if y.shape[2] > di:
+                y = y[:, :, :di]    # the padding heads
+            y = rmsnorm(p.norm, y)
+        for buf, new in zip(bufs, outs[1:]):
+            if tuple(buf.placements) != batch:
+                buf.copy_(new.redistribute(mesh, buf.placements))
+    out = dense(p.out_proj, y)
+    return out, (cache if cache is not None else None)
+
+
+class _Scale:
+    """`rmsnorm` reads ``p.scale``."""
+
+    def __init__(self, scale):
+        self.scale = scale
+
+
+def _ssm_mix(proj, conv_w, conv_b, dt_bias, A_log, Dskip, norm_scale,
+             scfg: SSMConfig, d_model: int, bufs, use_kernel, heads=None):
+    """`ssm_apply` between its two projections, on plain tensors: proj
+    [B, S, 2 di + 2 N + H] -> (y [B, S, di],) + the updated cache
+    tensors `bufs` (conv, state), written in place.  `heads` (lo, n), no
+    cache: only the heads lo ... lo + n - 1 (those past H repeat the
+    last), and y [B, S, n P] before the inner norm."""
+    B, S, _ = proj.shape
     di = scfg.d_inner(d_model)
     H = scfg.num_heads(d_model)
     N = scfg.d_state
     P = scfg.head_dim
-    proj = dense(p.in_proj, x)
+    dtype = proj.dtype
     z, xs, Bm, Cm, dt = _split_proj(proj, di, N, H)
+    if heads is not None:
+        lo, n = heads
+        pick = torch.clamp(torch.arange(lo, lo + n, device=proj.device),
+                           max=H - 1)
+        cols = (pick[:, None] * P
+                + torch.arange(P, device=proj.device)).reshape(-1)
+        chans = torch.cat([cols, di + torch.arange(2 * N,
+                                                   device=proj.device)])
+        z, xs, dt = z[..., cols], xs[..., cols], dt[..., pick]
+        conv_w, conv_b = conv_w[:, chans], conv_b[chans]
+        dt_bias, A_log, Dskip = dt_bias[pick], A_log[pick], Dskip[pick]
+        di, H = n * P, n
     conv_in = torch.cat([xs, Bm, Cm], dim=-1)
     conv_out, new_conv = _causal_conv(
-        conv_in, p.conv_w, p.conv_b, None if cache is None else cache["conv"])
+        conv_in, conv_w, conv_b, bufs[0] if bufs else None)
     conv_out = _silu(conv_out)
     xs = conv_out[..., :di]
     Bm = conv_out[..., di:di + N]
     Cm = conv_out[..., di + N:]
-    dt = _softplus(dt.float() + p.dt_bias)
-    A = torch.exp(p.A_log)
+    dt = _softplus(dt.float() + dt_bias)
+    A = torch.exp(A_log)
     xh = xs.reshape(B, S, H, P)
 
-    if cache is None or S > 1:
+    if not bufs or S > 1:
         # the sequence (with a cache: the prompt, keeping the final state)
         if use_kernel:
             y, state = ssd_ops.ssd_scan(xh, dt, A, Bm, Cm, chunk=scfg.chunk,
@@ -201,24 +288,24 @@ def ssm_apply(p: SSM, x, scfg: SSMConfig, d_model: int, cache=None,
             y, state = ssd_chunked(xh, dt, A, Bm, Cm, scfg.chunk)
     else:
         # decode: exact single-step recurrence (S == 1)
-        s_prev = cache["state"]                               # [B,H,P,N]
+        s_prev = bufs[1]                                      # [B,H,P,N]
         a = torch.exp(-A[None, :] * dt[:, 0])                 # [B,H]
         dBx = torch.einsum("bh,bn,bhp->bhpn", dt[:, 0], Bm[:, 0].float(),
                            xh[:, 0].float())
         state = s_prev * a[:, :, None, None] + dBx
         y = torch.einsum("bn,bhpn->bhp", Cm[:, 0].float(),
                          state)[:, None].reshape(B, 1, H, P)
-        y = y.to(x.dtype)
+        y = y.to(dtype)
 
-    y = y + xh * p.D[None, None, :, None].to(x.dtype)
+    y = y + xh * Dskip[None, None, :, None].to(dtype)
     y = y.reshape(B, S, di) * _silu(z)
-    y = rmsnorm(p.norm, y)
-    out = dense(p.out_proj, y)
-    if cache is None:
-        return out, None
-    cache["conv"].copy_(new_conv)
-    cache["state"].copy_(state)
-    return out, cache
+    if heads is not None:
+        return (y,)
+    y = rmsnorm(_Scale(norm_scale), y)
+    if bufs:
+        bufs[0].copy_(new_conv)
+        bufs[1].copy_(state)
+    return (y,) + tuple(bufs)
 
 
 def ssm_cache_init(batch, d_model, scfg: SSMConfig, dtype, device=None,

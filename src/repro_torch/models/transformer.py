@@ -12,8 +12,13 @@ scans them; here the groups are an `nn.ModuleList` looped over in Python,
 each group an `nn.ModuleDict` of sub-blocks ``sub0 ... sub{P-1}``.
 Parameter names mirror the reference's tree (``blocks.<g>.sub<j>.mix.q.w``
 is the reference's ``blocks.sub<j>.mix.q.w[g]``, ``encoder.<i>.mix.q.w``
-its ``encoder.mix.q.w[i]``).  The reference's sharding hook (`constrain`)
-is the identity on one device and is dropped.
+its ``encoder.mix.q.w[i]``).
+
+`constrain` is the reference's sharding hook, called where the reference
+calls it (`runtime.sharding.make_constrain`): on DTensors it redistributes
+the residual stream, the gathered final activations and the logits to the
+reference's specs; the default, and any call on a plain tensor, is the
+identity.
 
 Modes:
   train    - full sequence, loss-ready logits (with `remat`, each group is
@@ -44,6 +49,7 @@ from ..device import resolve_device
 from . import layers as L
 from .layers import AttnConfig
 from .moe import MoE, moe_apply
+from .placement import grad_as_value, is_dt, like, local, reduced
 from .rglru import RGLRU, rglru_apply, rglru_cache_init
 from .ssm import SSM, ssm_apply, ssm_cache_init
 
@@ -244,9 +250,13 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, device=None):
     return cache
 
 
+def _identity(x, kind: str = "resid"):
+    return x
+
+
 def forward(params: Transformer, cfg: ModelConfig, batch: dict,
             mode: str = "train", cache=None, attn_impl: str = "chunked",
-            remat: bool = True):
+            remat: bool = True, constrain=None):
     """batch: tokens [B, S_tok], with a frontend ``prefix_embeds`` [B, P, D]
     (placed before the tokens' embeddings; the logits cover only the
     tokens outside decode), with an encoder ``src_embeds`` [B, Sm, D]
@@ -256,36 +266,43 @@ def forward(params: Transformer, cfg: ModelConfig, batch: dict,
     loss is the fp32 sum of the MoE FFNs' load-balance losses (0 without
     MoE).  With `remat` in train mode, each scanned group's activations
     are recomputed in the backward pass, as the reference's
-    `jax.checkpoint` of its scan body (only where autograd records)."""
+    `jax.checkpoint` of its scan body (only where autograd records).
+    `constrain(x, kind)` is applied where the reference applies it."""
     dtype = cfg.torch_dtype
+    constrain = constrain or _identity
     tokens = batch["tokens"]
     S_tok = tokens.shape[1]
-    x = params.embed[tokens]
+    x = _embed(params.embed, tokens)
     prefixed = bool(cfg.frontend) and "prefix_embeds" in batch
     if prefixed:
         x = torch.cat([batch["prefix_embeds"].to(dtype), x], dim=1)
+    x = constrain(x)
     B, S, D = x.shape
     dev = x.device
     if mode == "decode":
         # positions from the first attention cache idx (all layers agree)
         idx = _first_idx(cache)
-        positions = idx + torch.arange(S, device=dev)[None, :].repeat(B, 1)
+        positions = idx + like(idx, torch.arange(
+            S, device=dev))[None, :].repeat(B, 1)
     else:
         positions = torch.arange(S, dtype=torch.int32,
                                  device=dev)[None, :].repeat(B, 1)
     inv_freq = L.rope_freqs(cfg.hd, cfg.rope_theta,
                             rot_dim=int(cfg.hd * cfg.rope_frac), device=dev)
+    positions, inv_freq = like(x, positions), like(x, inv_freq)
     use_cache = cache is not None
-    aux_total = torch.zeros((), dtype=torch.float32, device=dev)
+    aux_total = like(x, torch.zeros((), dtype=torch.float32, device=dev))
 
     memory = batch.get("memory")
     if cfg.encoder_layers and memory is None and "src_embeds" in batch:
         memory = batch["src_embeds"].to(dtype)
-        mpos = torch.arange(memory.shape[1], dtype=torch.int32,
-                            device=dev)[None, :].repeat(B, 1)
+        mpos = like(memory, torch.arange(
+            memory.shape[1], dtype=torch.int32,
+            device=dev)[None, :].repeat(B, 1))
         for p in params.encoder:
             memory, _ = _sub_apply(p, cfg, "enc", "dense", attn_impl, memory,
-                                   mpos, inv_freq, None)
+                                   mpos, like(memory, inv_freq), None)
+            memory = constrain(memory)
 
     def run_sub(p, i, x, c):
         return _sub_apply(p, cfg, _layer_kind(cfg, i), _ffn_kind(cfg, i),
@@ -298,6 +315,7 @@ def forward(params: Transformer, cfg: ModelConfig, batch: dict,
         for j, i in enumerate(idxs):
             c = cache[part][j] if use_cache else None
             x, aux = run_sub(getattr(params, part)[j], i, x, c)
+            x = constrain(x)
             aux_total = add(aux_total, aux)
         return x, aux_total
 
@@ -308,6 +326,7 @@ def forward(params: Transformer, cfg: ModelConfig, batch: dict,
             c = ({name: t[g] for name, t in cache["blocks"][sub].items()}
                  if use_cache else None)
             x, aux = run_sub(params.blocks[g][sub], cfg.first_dense + j, x, c)
+            x = constrain(x)
             aux_total = add(aux_total, aux)
         return x, aux_total
 
@@ -325,23 +344,117 @@ def forward(params: Transformer, cfg: ModelConfig, batch: dict,
     x = L.rmsnorm(params.final_norm, x, cfg.norm_eps)
     if prefixed and mode != "decode":
         x = x[:, -S_tok:]   # logits only over the token positions
-    head = params.embed.T if cfg.tie_embeddings else params.lm_head
-    logits = x @ head
+    x = constrain(x, "gather")  # un-shard seq before the vocab matmul
+    head = grad_as_value(params.embed).T if cfg.tie_embeddings \
+        else params.lm_head
+    logits = constrain(x @ head, "logits")
     return logits, cache, aux_total
 
 
+def _embed(table, tokens):
+    """table[tokens].  On DTensors the lookup runs on each rank's shard
+    (`placement.local`): a vocab shard looks up the tokens in its rows and
+    adds zeros for the rest (a partial sum over the vocab shards, reduced
+    here), an FSDP shard of the table is gathered, the tokens keep their
+    batch shard; with no vocab shard it is the plain lookup."""
+    if not is_dt(table):
+        return table[tokens]
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    table = grad_as_value(table)
+    tokens = like(table, tokens)
+    mesh = table.device_mesh
+    n, lo = table.shape[0], 0
+    tbl_pl, tok_pl, out_pl, grad_pl = [], [], [], []
+    for i, (p, q) in enumerate(zip(table.placements, tokens.placements)):
+        size = mesh.size(i)
+        if isinstance(p, Shard) and p.dim == 0 and size > 1:
+            n //= size
+            lo += mesh.get_local_rank(i) * n
+            tbl_pl.append(Shard(0))
+            tok_pl.append(Replicate())
+            out_pl.append(Partial())
+            grad_pl.append(Shard(0))
+        else:
+            q = q if isinstance(q, Shard) else Replicate()
+            tbl_pl.append(Replicate())
+            tok_pl.append(q)
+            out_pl.append(q)
+            grad_pl.append(Partial() if isinstance(q, Shard) else Replicate())
+    vocab_split = n < table.shape[0]
+
+    def look(tbl, tok):
+        if not vocab_split:
+            return (tbl[tok],)
+        t = tok - lo
+        ok = (t >= 0) & (t < n)
+        return (tbl[torch.where(ok, t, 0)] * ok[..., None].to(tbl.dtype),)
+
+    x, = local(look, (tuple(out_pl),), (tuple(tbl_pl), tuple(tok_pl)),
+               table, tokens,
+               in_grad_placements=(tuple(grad_pl), tuple(tok_pl)))
+    return reduced(x)
+
+
+def _label_logits(lg, labels):
+    """lg[b, s, labels[b, s]].  On DTensors the gather runs on each rank's
+    shard: a vocab shard reads the labels in its columns and adds zeros
+    for the rest (a partial sum over the vocab shards, reduced here); with
+    no vocab shard it is the plain gather."""
+    if not is_dt(lg):
+        return lg.gather(-1, labels[..., None])[..., 0]
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    labels = like(lg, labels)
+    mesh = lg.device_mesh
+    n, lo = lg.shape[-1], 0
+    lg_pl, lab_pl, out_pl = [], [], []
+    split = 1
+    for i, p in enumerate(lg.placements):
+        size = mesh.size(i)
+        if isinstance(p, Shard) and p.dim == 2 and size > 1:
+            n //= size
+            lo += mesh.get_local_rank(i) * n
+            lg_pl.append(Shard(2))
+            lab_pl.append(Replicate())
+            out_pl.append(Partial())
+        elif isinstance(p, Shard) and p.dim == 0 \
+                and lg.shape[0] % (split * size) == 0:
+            split *= size
+            lg_pl.append(Shard(0))
+            lab_pl.append(Shard(0))
+            out_pl.append(Shard(0))
+        else:
+            lg_pl.append(Replicate())
+            lab_pl.append(Replicate())
+            out_pl.append(Replicate())
+    vocab_split = n < lg.shape[-1]
+
+    def pick(lg, lab):
+        if not vocab_split:
+            return (lg.gather(-1, lab[..., None])[..., 0],)
+        t = lab - lo
+        ok = (t >= 0) & (t < n)
+        got = lg.gather(-1, torch.where(ok, t, 0)[..., None])[..., 0]
+        return (got * ok.to(got.dtype),)
+
+    ll, = local(pick, (tuple(out_pl),), (tuple(lg_pl), tuple(lab_pl)),
+                lg, labels,
+                in_grad_placements=(tuple(lg_pl), tuple(lab_pl)))
+    return reduced(ll)
+
+
 def lm_loss(params: Transformer, cfg: ModelConfig, batch: dict,
-            attn_impl: str = "chunked", remat: bool = True):
+            attn_impl: str = "chunked", remat: bool = True, constrain=None):
     """Mean next-token cross entropy over the positions with a label >= 0,
     plus the MoE aux loss: (loss, {"nll", "aux"}), fp32 scalars.  The
     log-sum-exp is the reference's, max-shifted in fp32."""
     logits, _, aux = forward(params, cfg, batch, "train",
-                             attn_impl=attn_impl, remat=remat)
+                             attn_impl=attn_impl, remat=remat,
+                             constrain=constrain)
     labels = batch["labels"]
     lg = logits.float()
     m = lg.amax(dim=-1, keepdim=True)
     lse = torch.log(torch.exp(lg - m).sum(dim=-1)) + m[..., 0]
-    ll = lg.gather(-1, torch.clamp(labels, min=0).long()[..., None])[..., 0]
+    ll = _label_logits(lg, torch.clamp(labels, min=0).long())
     mask = (labels >= 0).float()
     nll = ((lse - ll) * mask).sum() / torch.clamp(mask.sum(), min=1.0)
     return nll + aux, {"nll": nll, "aux": aux}

@@ -49,9 +49,25 @@ def decompress_tree(qt: dict) -> dict:
     return {name: decompress(*t) for name, t in qt.items()}
 
 
-def pod_compressed_psum(grads, err, pod_axis: str = "pod"):
-    """The reference's int8 + error-feedback all-reduce across pods needs
-    `psum` / `pmax` over a pod axis, which the port does not have yet."""
-    raise NotImplementedError(
-        "pod_compressed_psum needs the cross-pod collectives of "
-        "core/collectives.py, not ported yet (ROADMAP queue 1 item 6)")
+def pod_compressed_psum(grads: dict, err: dict, pod_axis: str = "pod", *,
+                        mesh):
+    """Full-precision reduction within the pod is the data axis' (DTensor's
+    gradients); across pods, int8 + error feedback: every rank of the
+    `mesh` (a `DeviceMesh` with a `pod_axis` dim) calls this with its own
+    grads and error state.  Each leaf's int8 values are summed in int32
+    over the pod group and rescaled by the largest scale over it (the
+    conservative choice).  Returns (name -> summed fp32 tensor, new error
+    tree).  Raises when no process group is initialised."""
+    import torch.distributed as dist
+    if not dist.is_initialized():
+        raise RuntimeError(
+            "pod_compressed_psum reduces over the mesh's pod axis and needs "
+            "an initialised torch.distributed process group")
+    from ..core.collectives import all_reduce
+    qt, new_err = ef_compress_tree(grads, err)
+    summed = {}
+    for name, (q, s) in qt.items():
+        qs = all_reduce(q.to(torch.int32), mesh, pod_axis, "sum")
+        ss = all_reduce(s, mesh, pod_axis, "max")
+        summed[name] = qs.to(torch.float32) * ss
+    return summed, new_err

@@ -1,6 +1,8 @@
 """AdamW with WSD / cosine schedules, gradient clipping by the global norm,
 and fp32 master copies of the (bf16) params (port of
-`repro.optim.optimizer`; ZeRO sharding of the state is not ported).
+`repro.optim.optimizer`).  On a mesh the params, gradients and state are
+DTensors placed by `runtime.sharding` (the state ZeRO-sharded over
+"data"), and the same arithmetic runs on them.
 
 The state is ``{"master", "m", "v": {param name: fp32 tensor}, "step":
 int32 scalar}``, keyed by the model's `named_parameters`.  Unlike the

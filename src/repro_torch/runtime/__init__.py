@@ -1,3 +1,3 @@
-"""Train, prefill and decode steps, the host training loop and its fault
-tolerance (port of `repro.runtime`; sharding and HLO analysis are not
-ported yet)."""
+"""Train, prefill and decode steps (one device, or sharded on a mesh),
+the host training loop and its fault tolerance, the sharding rules and
+the collective accounting (port of `repro.runtime`)."""

@@ -27,6 +27,7 @@ from repro.data import pipeline as JD
 from repro.models import transformer as JTF
 from repro.optim import compression as JC
 from repro.optim import optimizer as JO
+from repro.runtime import sharding as JSH
 from repro.runtime import trainer as JT
 from repro_torch.checkpoint.checkpointing import Checkpointer
 from repro_torch.configs import registry as treg
@@ -40,6 +41,7 @@ from repro_torch.models.convert import opt_state_from_jax, params_from_jax
 from repro_torch.optim import compression as TC
 from repro_torch.optim import optimizer as TO
 from repro_torch.runtime import trainer as TT
+import torch_rank_jobs as jobs  # noqa: E402  (tests/, on sys.path)
 from repro_torch.runtime.fault_tolerance import (FailureInjector,
                                                  FaultTolerantLoop,
                                                  StragglerMonitor)
@@ -296,8 +298,10 @@ def test_ef_compression_matches_the_reference():
             assert np.array_equal(tqt[k][1].numpy(), np.asarray(jqt[k][1]))
             assert np.array_equal(terr[k].numpy(), np.asarray(jerr[k]))
             assert np.array_equal(tback[k].numpy(), np.asarray(jback[k]))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TC.pod_compressed_psum(grads[0], terr)
+    # the cross-pod reduction needs a process group (its gloo parity is in
+    # tests/test_torch_collectives.py)
+    with pytest.raises(RuntimeError, match="process group"):
+        TC.pod_compressed_psum(grads[0], terr, mesh=None)
 
 
 # --- the host loop, checkpoints and fault tolerance ------------------------
@@ -422,3 +426,270 @@ def test_kernel_entry_points_stay_differentiable_on_the_cpu():
                                 [q, k, v, x, dt, A, Bm, Cm, a, b])
     assert all(g is not None and bool(torch.isfinite(g).all())
                for g in grads)
+
+
+# --- the sharded train step on a real multi-rank mesh ------------------------
+# (the ranks' bodies are in `torch_rank_jobs`, which imports no JAX, so
+# the spawned ranks start without it)
+
+SHARDED_STEPS = jobs.SHARDED_STEPS
+
+
+def _param_gaps(named_port, ref_of, move):
+    total = off = 0
+    worst = 0.0
+    for name, got in named_port.items():
+        d = np.abs(got - ref_of(name))
+        total += d.size
+        off += int((d > 1e-5).sum())
+        worst = max(worst, float(d.max()))
+    assert off <= 1e-3 * total and worst <= move, (off, total, worst, move)
+    return worst, off, total
+
+
+def test_sharded_trainer_on_four_gloo_ranks_matches_the_reference(tmp_path):
+    """minicpm-2b-smoke in fp32 through `Trainer(mesh=...)` on 4 gloo ranks
+    in a (2, 2) mesh (data x model: FSDP-free at this size, the batch and
+    the vocab-parallel embedding, heads and FFN split), 2 steps, against
+    the reference's `make_train_step` on a 1 x 1 mesh from the same
+    weights and batches: metrics 1e-5 relative; parameters 1e-5 absolute
+    but for at most 1e-3 of the elements, and those within Adam's largest
+    move (the phase-15 bar of `PERF.md` section 2)."""
+    cfg, params, tcfg, model = _models("minicpm-2b")
+    opt = JO.OptConfig(lr=1e-3, warmup_steps=1, total_steps=3,
+                       weight_decay=0.1, schedule=cfg.schedule)
+    jstep = jax.jit(JT.make_train_step(
+        JT.TrainSetup(model=cfg, opt=opt, attn_impl="chunked", remat=True),
+        _mesh()))
+    named = {n: _np(p) for n, p in model.named_parameters()}
+    res = jobs.run_ranks(jobs.sharded_trainer, 4, tmp_path / "store",
+                    (tcfg, _opt_config(opt), named, 2),
+                    timeout=300)
+    hist, full, placed, pspecs = res[0]
+    assert all(r == placed if isinstance(r, int) else True for r in res)
+    assert placed == len(named)
+    assert any("model" in tuple(s) for s in pspecs.values())
+    jopt = JO.init_opt_state(params)
+    data = TD.SyntheticTokens(cfg.vocab_size, 4, 32, seed=3)
+    jhist = []
+    for _ in range(SHARDED_STEPS):
+        batch = next(data)
+        params, jopt, jm = jstep(params, jopt,
+                                 {k: jnp.asarray(v) for k, v in batch.items()})
+        jhist.append(jm)
+    for tm, jm in zip(hist, jhist):
+        for k in METRICS:
+            assert _rel(tm[k], jm[k]) < 1e-5, k
+    jparams = jax.tree.map(np.asarray, params)
+    move = 2 * sum(float(h["lr"]) for h in hist)
+    worst, off, total = _param_gaps(full, lambda n: _leaf(jparams, n), move)
+    print(f"\nsharded (2, 2) vs reference: largest parameter gap {worst:.3e},"
+          f" {off} of {total} elements above 1e-5")
+
+
+@pytest.mark.parametrize("model_axis", [3, 4])
+def test_sharded_trainer_with_heads_split_unevenly_matches_the_reference(
+        tmp_path, model_axis):
+    """minicpm-2b-smoke (4 query heads, 2 KV heads) in fp32 through
+    `Trainer(mesh=...)` on a (1, m) mesh of gloo ranks, where "model"
+    does not divide the KV heads (m 4: each rank one query head and its
+    KV head) or either head count (m 3: two heads a rank, the last rank's
+    second a padding head), 2 steps, against the reference's
+    `make_train_step` on a 1 x 1 mesh: the phase-15 bar, as above."""
+    cfg, params, tcfg, model = _models("minicpm-2b")
+    opt = JO.OptConfig(lr=1e-3, warmup_steps=1, total_steps=3,
+                       weight_decay=0.1, schedule=cfg.schedule)
+    jstep = jax.jit(JT.make_train_step(
+        JT.TrainSetup(model=cfg, opt=opt, attn_impl="chunked", remat=True),
+        _mesh()))
+    named = {n: _np(p) for n, p in model.named_parameters()}
+    hist, full, placed, _ = jobs.run_ranks(
+        jobs.sharded_trainer, model_axis, tmp_path / "store",
+        (tcfg, _opt_config(opt), named, model_axis), timeout=300)[0]
+    assert placed == len(named)
+    jopt = JO.init_opt_state(params)
+    data = TD.SyntheticTokens(cfg.vocab_size, 4, 32, seed=3)
+    for tm in hist:
+        batch = {k: jnp.asarray(v) for k, v in next(data).items()}
+        params, jopt, jm = jstep(params, jopt, batch)
+        for k in METRICS:
+            assert _rel(tm[k], jm[k]) < 1e-5, k
+    jparams = jax.tree.map(np.asarray, params)
+    move = 2 * sum(float(h["lr"]) for h in hist)
+    worst, off, total = _param_gaps(full, lambda n: _leaf(jparams, n), move)
+    print(f"\nsharded (1, {model_axis}) vs reference: largest parameter "
+          f"gap {worst:.3e}, {off} of {total} elements above 1e-5")
+
+
+@pytest.mark.parametrize("world,model_axis", [(4, 2), (3, 3)],
+                         ids=["2x2", "1x3"])
+def test_sharded_mamba2_trainer_matches_the_reference(tmp_path, world,
+                                                      model_axis):
+    """mamba2-780m-smoke (8 SSD heads) in fp32 through `Trainer(mesh=...)`
+    on gloo ranks: on (2, 2) the batch over "data" (the SSD weights'
+    gradients summed over the data shards) and 4 heads a rank over
+    "model"; on (1, 3) 3 heads a rank, the last rank's third a padding
+    head.  2 steps against the reference's `make_train_step` on a 1 x 1
+    mesh: the phase-15 bar, as above."""
+    cfg, params, tcfg, model = _models("mamba2-780m")
+    opt = JO.OptConfig(lr=1e-3, warmup_steps=1, total_steps=3,
+                       weight_decay=0.1, schedule=cfg.schedule)
+    jstep = jax.jit(JT.make_train_step(
+        JT.TrainSetup(model=cfg, opt=opt, attn_impl="chunked", remat=True),
+        _mesh()))
+    named = {n: _np(p) for n, p in model.named_parameters()}
+    hist, full, placed, _ = jobs.run_ranks(
+        jobs.sharded_trainer, world, tmp_path / "store",
+        (tcfg, _opt_config(opt), named, model_axis), timeout=300)[0]
+    assert placed == len(named)
+    jopt = JO.init_opt_state(params)
+    data = TD.SyntheticTokens(cfg.vocab_size, 4, 32, seed=3)
+    for tm in hist:
+        batch = {k: jnp.asarray(v) for k, v in next(data).items()}
+        params, jopt, jm = jstep(params, jopt, batch)
+        for k in METRICS:
+            assert _rel(tm[k], jm[k]) < 1e-5, k
+    jparams = jax.tree.map(np.asarray, params)
+    move = 2 * sum(float(h["lr"]) for h in hist)
+    worst, off, total = _param_gaps(full, lambda n: _leaf(jparams, n), move)
+    print(f"\nsharded mamba2 ({world // model_axis}, {model_axis}) vs "
+          f"reference: largest parameter gap {worst:.3e}, {off} of {total} "
+          "elements above 1e-5")
+
+
+def test_sharded_step_on_one_rank_equals_the_plain_step(tmp_path):
+    """On a 1 x 1 mesh every placement is replicated and no collective
+    runs: the sharded step equals the plain one (metrics and parameters
+    equal; the largest difference is printed), its checkpoint holds the
+    same arrays as the plain one's, and restoring it brings the sharded
+    trainer back to them."""
+    tcfg = dataclasses.replace(treg.get_config("minicpm-2b-smoke"),
+                               dtype="float32")
+    opt = JO.OptConfig(lr=1e-3, warmup_steps=1, total_steps=3,
+                       weight_decay=0.1, schedule=tcfg.schedule)
+    hs, hp, gap, same, back = jobs.run_ranks(
+        jobs.one_rank_trainer, 1, tmp_path / "store",
+        (tcfg, _opt_config(opt), str(tmp_path / "ckpt")), timeout=180)[0]
+    print(f"\none-rank mesh vs plain: largest parameter difference {gap}")
+    assert hs == hp
+    assert gap == 0.0
+    assert same
+    assert back == 0.0
+
+
+def test_jit_train_step_places_on_first_call_and_keeps_specs():
+    """`jit_train_step(...)(model, opt)` exposes the three spec trees and
+    places nothing before its first call (on a fake 8-rank mesh)."""
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import DTensor
+    from repro_torch.launch.dryrun import fake_group
+    tcfg = treg.get_config("minicpm-2b-smoke")
+    with fake_group(8):
+        mesh = init_device_mesh("cpu", (2, 4),
+                                mesh_dim_names=("data", "model"))
+        model = TTF.Transformer(tcfg, "cpu")
+        opt = TO.init_opt_state(model)
+        shapes = {"tokens": torch.empty(8, 16, dtype=torch.int32),
+                  "labels": torch.empty(8, 16, dtype=torch.int32)}
+        build = TT.jit_train_step(TT.TrainSetup(model=tcfg,
+                                                opt=TO.OptConfig()),
+                                  mesh, shapes)
+        step = build(model, opt)
+        pspecs, ospecs, bspecs = step.pspec_tree
+        assert build.pspec_tree is step.pspec_tree
+        assert pspecs["embed"][0] == "model"
+        assert ospecs["step"] == () and set(ospecs) == {"master", "m", "v",
+                                                        "step"}
+        assert bspecs["tokens"][0] == "data"
+        assert not any(isinstance(p, DTensor) for p in model.parameters())
+        TT.place_model(model, pspecs, mesh)
+        TT.place_tree(opt, ospecs, mesh)
+        assert all(isinstance(p, DTensor) for p in model.parameters())
+        assert tuple(opt["m"]["embed"].to_local().shape) \
+            == (256 // 4, 64 // 2)
+
+
+def test_sharded_moe_loss_and_gradients_match_the_plain_path(tmp_path):
+    """deepseek-moe-16b-smoke in fp32 on 4 gloo ranks, a (2, 2) mesh:
+    the experts split over "model" (expert parallelism), each data shard
+    routing its own tokens.  With a capacity no pair overflows, each
+    shard's routing is the global one's, and the load-balance factors
+    are summed over the shards before their product, so the loss, its
+    nll and aux, and every gradient equal the plain path's on the whole
+    batch (3e-5 relative to each leaf's largest value)."""
+    base = treg.get_config("deepseek-moe-16b-smoke")
+    tcfg = dataclasses.replace(base, dtype="float32", moe=dataclasses.replace(
+        base.moe, capacity_factor=float(base.moe.num_experts)))
+    batch = _batch(tcfg, 4, 32, seed=6)
+    out, full, placements = jobs.run_ranks(
+        jobs.moe_sharded_grads, 4, tmp_path / "store",
+        (tcfg, batch["tokens"], batch["labels"]), timeout=300)[0]
+    assert all("Shard(dim=0)" in p for p in placements)
+    model = TTF.init_params(tcfg, torch.Generator().manual_seed(7), "cpu")
+    params = dict(model.named_parameters())
+    batch = {k: torch.as_tensor(v) for k, v in batch.items()}
+    ref, met = TTF.lm_loss(model, tcfg, batch, attn_impl="chunked")
+    grads = torch.autograd.grad(ref, list(params.values()))
+    assert _rel(out["nll"], _np(met["nll"])) < 1e-5
+    assert _rel(out["aux"], _np(met["aux"])) < 1e-5
+    assert _rel(out["loss"], _np(ref)) < 1e-5
+    for (name, _), g in zip(params.items(), grads):
+        assert _rel(full[name], _np(g)) < 3e-5, name
+
+
+def test_sharded_moe_trainer_on_four_gloo_ranks_matches_the_reference(
+        tmp_path):
+    """deepseek-moe-16b-smoke in fp32 on 4 gloo ranks in a (2, 2) mesh
+    (experts over "model", tokens over "data"), from the reference's
+    weights, at a capacity no pair overflows: the loss, nll, aux and every
+    gradient of the first batch against `jax.value_and_grad` of the loss
+    that the reference's `make_train_step` differentiates (1e-5 relative;
+    gradients 3e-5 relative to each leaf's largest value), then
+    `Trainer(mesh=...)`'s 2 steps against `make_train_step` on a 1 x 1
+    mesh: metrics 1e-5 relative, parameters within the phase-15 bar."""
+    cfg, params, tcfg, model = _models("deepseek-moe-16b")
+
+    def roomy(c):
+        return dataclasses.replace(c, moe=dataclasses.replace(
+            c.moe, capacity_factor=float(c.moe.num_experts)))
+    cfg, tcfg = roomy(cfg), roomy(tcfg)
+    opt = JO.OptConfig(lr=1e-3, warmup_steps=1, total_steps=3,
+                       weight_decay=0.1, schedule=cfg.schedule)
+    setup = JT.TrainSetup(model=cfg, opt=opt, attn_impl="chunked",
+                          remat=True)
+    jstep = jax.jit(JT.make_train_step(setup, _mesh()))
+    named = {n: _np(p) for n, p in model.named_parameters()}
+    first, grads, hist, full = jobs.run_ranks(
+        jobs.moe_sharded_against_reference, 4, tmp_path / "store",
+        (tcfg, _opt_config(opt), named), timeout=300)[0]
+
+    data = TD.SyntheticTokens(cfg.vocab_size, 4, 32, seed=3)
+    batch = {k: jnp.asarray(v) for k, v in next(data).items()}
+    constrain = JSH.make_constrain(_mesh())
+    (jl, jm), jg = jax.jit(jax.value_and_grad(
+        lambda p: JTF.lm_loss(p, cfg, batch, attn_impl="chunked",
+                              remat=True, constrain=constrain),
+        has_aux=True))(params)
+    assert _rel(first["loss"], jl) < 1e-5
+    for k in ("nll", "aux"):
+        assert _rel(first[k], jm[k]) < 1e-5, k
+    assert float(jm["aux"]) > 0
+    jg = jax.tree.map(np.asarray, jg)
+    for name, g in grads.items():
+        assert _rel(g, _leaf(jg, name)) < 3e-5, name
+
+    jopt = JO.init_opt_state(params)
+    data = TD.SyntheticTokens(cfg.vocab_size, 4, 32, seed=3)
+    jhist = []
+    for _ in range(SHARDED_STEPS):
+        batch = {k: jnp.asarray(v) for k, v in next(data).items()}
+        params, jopt, jm = jstep(params, jopt, batch)
+        jhist.append(jm)
+    for tm, jm in zip(hist, jhist):
+        for k in METRICS:
+            assert _rel(tm[k], jm[k]) < 1e-5, k
+    jparams = jax.tree.map(np.asarray, params)
+    move = 2 * sum(float(h["lr"]) for h in hist)
+    worst, off, total = _param_gaps(full, lambda n: _leaf(jparams, n), move)
+    print(f"\nsharded MoE (2, 2) vs reference: largest parameter gap "
+          f"{worst:.3e}, {off} of {total} elements above 1e-5")
