@@ -191,10 +191,29 @@ Phases (any failure ends the run with a nonzero exit):
    so; the multi-pod train cells move bytes on "pod"; (d) the port's
    collectives and `pod_compressed_psum` bound to NCCL at one rank (their
    n = 1 path: the result is the input); their cross-rank results are
-   held on the CPU only, by 8 gloo ranks (`tests/test_torch_collectives.py`).
+   held on the CPU only, by 8 gloo ranks (`tests/test_torch_collectives.py`);
+19. multi-device placement on the one card, REPRO_HOST_DEVICES=2 logical
+   devices sharing it: (a) phase 12's fig11 switch-less 1B uniform cell
+   (3 lanes, 300 + 1,200 cycles) with REPRO_SHARD_MIN_WORK=0 on one sweep,
+   unsharded then "lanes:2" (two chunks of two lanes, one a ghost): pad
+   fraction 0.25, every counter equal lane for lane to phase 12's run,
+   one capture for both chunks, the grant launches on the card (2 x
+   cycles + the warm-up), cycles/s beside the unsharded run's; (b) the
+   fused step channel-sharded, REPRO_CHANNEL_SHARDS=2 ("lanes:1,shards:2",
+   the eager loop; `SHARDED_CUT` cycles, printed), equal to the unsharded
+   fused run on the same lanes, with its grant form, pad fraction,
+   cycles/s beside the captured run's, and peak memory; (c) a two-cell
+   spec round-robined (each cell pinned to its logical device) and
+   smoke_faults spread over both ("lanes:2") through the runner, and a
+   `SimService` with smoke and smoke_faults whose two buckets land on the
+   two devices: rows and JSONL equal to the one-device run on the card;
+   (d) in an NCCL group of one rank, `launch.train.main` on minicpm-2b at
+   full width, 3 steps, trains on `make_host_mesh(model=1)` and equals the
+   plain launcher's run at the phase-15 bar; `--production-mesh` on that
+   group raises, naming the 256 ranks it needs.
 
 Then one JSON line of kernel numbers (the netsim entries with the launches
-of every path, phases 4 and 12-14, in `by_path`; the flash entry's
+of every path, phases 4, 12-14 and 19, in `by_path`; the flash entry's
 launches and timings by served model), the card's name and power limit, and the final
 status line.  Exits nonzero, printing no result, without a CUDA
 device or without the repository's sources.
@@ -679,8 +698,8 @@ class ConservationProbe:
         self.warmup, self.last = warmup, last
         self.rows = None      # [last + 1, lanes] in-flight after cycle t
         sweep.step = self.wrap(sweep.step)
-        make_rung = sweep._compact_step
-        sweep._compact_step = lambda C: self.wrap(make_rung(C))
+        build = sweep._build_step
+        sweep._build_step = lambda *a: self.wrap(build(*a))
 
     def wrap(self, step):
         import torch
@@ -3097,6 +3116,289 @@ def phase_dryrun_cells():
     return out
 
 
+# phase 19: multi-device placement, logical devices on the one card
+PLACEMENT_DEVICES = "2"
+# (b) the channel-sharded step runs eagerly (a CUDA graph cannot span
+# cards), once in each grant form: phase 4's 300 + 1,200 cycles cut to
+# these, on two lanes
+SHARDED_CUT = dict(warmup=50, measure=150)
+SHARDED_LANES = ((0.4, 0, None), (1.0, 1, None))
+PLACEMENT_SUBS = (("alice", "smoke"), ("bob", "smoke_faults"))
+# (d) the launcher's example at full width, 3 steps
+LAUNCH_MESH = ("--arch", "minicpm-2b", "--steps", "3", "--batch", "8",
+               "--seq", "128", "--lr", "3e-4", "--ckpt-every", "0")
+
+
+@contextlib.contextmanager
+def knobs(**values):
+    """The environment knobs `values` set inside the block, restored (or
+    removed) after it."""
+    import os
+    old = {k: os.environ.get(k) for k in values}
+    os.environ.update({k: str(v) for k, v in values.items()})
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def _rows_of(results):
+    return [dataclasses.asdict(r) for r in results]
+
+
+def phase_lane_sharding(device, spec, want):
+    """19(a): phase 12's first cell (fig11 switch-less 1B uniform, 3 lanes)
+    on one sweep, unsharded, then spread over two logical devices on the
+    card.  `want` is phase 12's rows of the cell.  Returns the numbers."""
+    from repro_torch.core.engine.sweep import BatchedSweep
+    from repro_torch.exp import runner
+    cell = next(runner.cells(spec))
+    cycles = spec.axes.warmup + spec.axes.measure
+    lanes = [(r, s, None) for r in spec.axes.rates for s in spec.axes.seeds]
+    sweep = BatchedSweep(cell.net, cell.cfg, cell.pattern, device=device)
+    one, _, _, _ = counted(lambda: sweep.run_lanes(lanes))
+    with knobs(REPRO_HOST_DEVICES=PLACEMENT_DEVICES,
+               REPRO_SHARD_MIN_WORK=0):
+        run, wall, dev, host = counted(lambda: sweep.run_lanes(lanes))
+    check(one.placement == "single" and _rows_of(one.results) == want,
+          "placement (a): the unsharded run != phase 12's")
+    check(run.placement == "lanes:2" and run.pad_fraction == 0.25,
+          f"placement (a): {run.placement}, pad {run.pad_fraction}")
+    check(_rows_of(run.results) == want,
+          "placement (a): the lanes:2 run != phase 12's, lane for lane")
+    calls = 2 * cycles + run.superstep * run.compile_count
+    check(run.compile_count == 1 and dev["grant"]["coop"] == calls
+          and not any(dev["cycle_core"].values()),
+          f"placement (a): {run.compile_count} captures, grant launches "
+          f"{dev['grant']} != {calls} (two chunks x cycles + the warm-up)")
+    out = dict(cycles_per_s=cycles / run.wall_s,
+               single_cycles_per_s=cycles / one.wall_s,
+               captures=run.compile_count, capture_s=run.compile_s,
+               launches=dev)
+    print(f"[placement] (a) {cell.topology.label} {cell.traffic.label}, "
+          f"{len(lanes)} lanes x {cycles} cycles on "
+          f"REPRO_HOST_DEVICES={PLACEMENT_DEVICES} (one card): "
+          f"{run.placement}, pad_fraction {run.pad_fraction}, every lane "
+          f"== phase 12's; {run.compile_count} capture for both chunks "
+          f"({run.compile_s:.3f} s); {out['cycles_per_s']:.2f} cycles/s "
+          f"against {out['single_cycles_per_s']:.2f} unsharded on the same "
+          f"sweep; grant launches on the card {dev['grant']}")
+    return out
+
+
+def phase_channel_sharding(device, net):
+    """19(b): the fused step on the full-width net, captured and unsharded,
+    then channel-sharded over two logical devices (the eager loop),
+    `SHARDED_CUT` cycles on `SHARDED_LANES`: in the form `grant_form`
+    picks, then with the `two_pass` form forced (the age minimum
+    exchanged, the tie re-masked against it, the priority minimum
+    exchanged).  Both pick the same winners.  Returns the numbers."""
+    import torch
+    from repro_torch.core import traffic
+    from repro_torch.core.engine.fused import fused_pad
+    from repro_torch.core.engine.sweep import lane_mesh
+    from repro_torch.core.simulator import SimConfig, Simulator
+    cfg = SimConfig(**SHARDED_CUT, step_impl="fused")
+    cycles = cfg.warmup + cfg.measure
+    sim = Simulator(net, cfg, traffic.uniform(net), device=device)
+    lanes = list(SHARDED_LANES)
+    fresh_peak()
+    one, _, _, _ = counted(lambda: sim._batched.run_lanes(lanes))
+    single_peak = torch.cuda.max_memory_allocated()
+    fresh_peak()
+    with knobs(REPRO_HOST_DEVICES=PLACEMENT_DEVICES,
+               REPRO_CHANNEL_SHARDS=2):
+        run, wall, dev, host = counted(lambda: sim._batched.run_lanes(lanes))
+        peak = torch.cuda.max_memory_allocated()
+        step = sim._batched._step_for(lane_mesh(2, device)[0], 2)
+        form = step.form
+        step.form = "two_pass"
+        try:
+            run2, _, dev2, _ = counted(
+                lambda: sim._batched.run_lanes(lanes))
+        finally:
+            step.form = form
+    check(run.placement == "lanes:1,shards:2" and run.loop == "eager",
+          f"placement (b): {run.placement}, loop {run.loop}")
+    check(form == run.grant_form,
+          f"placement (b): the step ran {form}, grant_form {run.grant_form}")
+    for r, name in ((run, form), (run2, "two_pass")):
+        check(_rows_of(r.results) == _rows_of(one.results),
+              f"placement (b): the channel-sharded run in the {name} form "
+              "!= the unsharded fused run")
+    # the sharded step's grant is the plain reduction (its minimum exists
+    # only after the shards' exchange): no netsim kernel runs
+    check(not any(n for d in (dev, dev2) for w in d.values()
+                  for n in w.values()),
+          f"placement (b): netsim launches {dev}, {dev2} in the sharded "
+          "runs")
+    ch_pad, term_pad = fused_pad(net, 2)
+    out = dict(cycles=cycles, grant_form=run.grant_form,
+               pad_fraction=run.pad_fraction, ch_pad=ch_pad,
+               term_pad=term_pad, cycles_per_s=cycles / run.wall_s,
+               two_pass_cycles_per_s=cycles / run2.wall_s,
+               single_cycles_per_s=cycles / one.wall_s, peak=peak,
+               single_peak=single_peak, launches=dev)
+    print(f"[placement] (b) fused step, {len(lanes)} lanes, cycles cut "
+          f"from {FULL_CFG['warmup']} + {FULL_CFG['measure']} to "
+          f"{cfg.warmup} + {cfg.measure}, REPRO_CHANNEL_SHARDS=2 on "
+          f"{PLACEMENT_DEVICES} logical devices: {run.placement}, loop "
+          f"{run.loop}, grant form {run.grant_form} (unsharded "
+          f"{one.grant_form}), ghost channels {ch_pad}, terminals "
+          f"{term_pad}, pad_fraction {run.pad_fraction}; every counter == "
+          f"the unsharded fused run in both forms; "
+          f"{out['cycles_per_s']:.2f} cycles/s ({form}), "
+          f"{out['two_pass_cycles_per_s']:.2f} (two_pass forced), against "
+          f"{out['single_cycles_per_s']:.2f} captured unsharded; "
+          f"peak {peak} bytes (unsharded {single_peak}); netsim launches "
+          f"{dev}")
+    return out
+
+
+def _two_cell_spec():
+    from repro_torch.exp import registry
+    smoke = registry.get_scenario("smoke")
+    topo = registry.get_scenario("smoke_fused").topologies[0]
+    return dataclasses.replace(smoke, name="smoke_two_cells",
+                               topologies=(smoke.topologies[0], topo))
+
+
+def phase_placement_exp(device):
+    """19(c): the runner and the service on two logical devices against
+    one device, on the card.  Returns the launches of the two-device runs
+    ({"exp": ..., "serve": ...})."""
+    import io
+    from repro_torch.exp import clear_caches, get_scenario, runner
+    from repro_torch.exp.serve import SimService
+    from repro_torch.exp.serve.packer import Pack
+    moved = EXP_TIMINGS + ("placement", "pad_fraction")
+    strip = lambda rows: [{k: v for k, v in r.items() if k not in moved}
+                          for r in rows]
+    two_cell, faults = _two_cell_spec(), get_scenario("smoke_faults")
+    one = [runner.run_experiment(sp, device=device)
+           for sp in (two_cell, faults)]
+    clear_caches()
+    with knobs(REPRO_HOST_DEVICES=PLACEMENT_DEVICES):
+        rr, _, dev_rr, _ = counted(
+            lambda: runner.run_experiment(two_cell, device=device))
+        with knobs(REPRO_SHARD_MIN_WORK=0):
+            spread, _, dev_sp, _ = counted(
+                lambda: runner.run_experiment(faults, device=device))
+    check([g.device for g in rr.grids] == ["cuda:0", "cuda:1"]
+          and [g.placement for g in rr.grids] == ["single", "single"],
+          f"placement (c): cells on {[g.device for g in rr.grids]}")
+    check([g.placement for g in spread.grids] == ["lanes:2"],
+          f"placement (c): smoke_faults {[g.placement for g in spread.grids]}")
+    check(strip(rr.rows()) == strip(one[0].rows())
+          and strip(spread.rows()) == strip(one[1].rows()),
+          "placement (c): runner rows on two devices != one device")
+
+    def serve():
+        out = io.StringIO()
+        svc = SimService(out=out, window=SERVE_WINDOW, device=device)
+        for tenant, name in PLACEMENT_SUBS:
+            svc.submit(get_scenario(name), tenant=tenant)
+        svc.run()
+        check(svc.idle, "placement (c): the service did not drain")
+        return out.getvalue().splitlines()
+
+    lines_one = serve()
+    opened, orig = [], Pack.open.__func__
+
+    def record(cls, sid, bucket, units, **kw):
+        pk = orig(cls, sid, bucket, units, **kw)
+        opened.append((sid, str(pk.device)))
+        return pk
+
+    Pack.open = classmethod(record)
+    try:
+        with knobs(REPRO_HOST_DEVICES=PLACEMENT_DEVICES):
+            lines_two, _, dev_sv, _ = counted(serve)
+    finally:
+        Pack.open = classmethod(orig)
+    check({d for _, d in opened} == {"cuda:0", "cuda:1"},
+          f"placement (c): service packs on {opened}")
+    check(len(lines_two) == len(lines_one) > 1
+          and lines_two[1:] == lines_one[1:],
+          "placement (c): service JSONL on two devices != one device")
+    print(f"[placement] (c) on {PLACEMENT_DEVICES} logical devices: the "
+          f"two-cell spec round-robined ({[g.device for g in rr.grids]}, "
+          f"{[g.placement for g in rr.grids]}) and smoke_faults spread "
+          f"({spread.grids[0].placement}, pad "
+          f"{spread.grids[0].pad_fraction}): rows == one device; the "
+          f"service's packs on {opened}: its {len(lines_two)} JSONL lines "
+          f"== one device's after the meta line; launches on the card: "
+          f"runner {dev_rr} + {dev_sp}, service {dev_sv}")
+    exp = {w: {k: dev_rr[w][k] + dev_sp[w][k] for k in dev_rr[w]}
+           for w in dev_rr}
+    return dict(exp=exp, serve=dev_sv)
+
+
+def phase_launcher_mesh(device):
+    """19(d): `launch.train.main` (`LAUNCH_MESH`) with no process group,
+    then in an NCCL group of one rank, where it trains on
+    `make_host_mesh(model=1)`: metrics at 1e-5 relative and parameters at
+    the phase-15 bar; then `--production-mesh` in that group raises."""
+    import torch
+    from repro_torch.launch import train as launch_train
+    from repro_torch.runtime.trainer import full
+    argv = list(LAUNCH_MESH) + ["--ckpt-dir",
+                                str(ROOT / "build" / "launch_ckpt")]
+    torch.cuda.empty_cache()
+    tr = launch_train.main(argv, device=device)
+    check(tr.mesh is None, "placement (d): the plain launcher built a mesh")
+    plain_hist = tr.history
+    plain = {n: p.detach().cpu() for n, p in tr.model.named_parameters()}
+    plain_ms = float(np.median(tr.step_times[1:])) * 1e3
+    del tr
+    torch.cuda.empty_cache()
+    with nccl_rank("launcher"):
+        tr = launch_train.main(argv, device=device)
+        check(tr.mesh is not None and tuple(tr.mesh.mesh.shape) == (1, 1),
+              "placement (d): the launcher in a group built no host mesh")
+        placed = sum(type(p).__name__ == "DTensor"
+                     for p in tr.model.parameters())
+        metric = max(abs(a[k] - b[k]) / max(abs(b[k]), 1e-30)
+                     for a, b in zip(tr.history, plain_hist) for k in b)
+        move = 2 * sum(h["lr"] for h in plain_hist)
+        total = off = 0
+        param = 0.0
+        for n, p in tr.model.named_parameters():
+            d = (full(p).detach().cpu().float() - plain[n].float()).abs()
+            total += d.numel()
+            off += int((d > TRAIN_ABS).sum())
+            param = max(param, float(d.max()))
+        mesh_ms = float(np.median(tr.step_times[1:])) * 1e3
+        del tr
+        torch.cuda.empty_cache()
+        try:
+            launch_train.main(argv + ["--production-mesh"], device=device)
+            err = None
+        except ValueError as e:
+            err = str(e)
+    check(placed > 0 and metric < 1e-5
+          and off <= TRAIN_OFF_SHARE * total and param <= move,
+          f"placement (d): the launcher on a host mesh against one device: "
+          f"{placed} DTensor parameters, metrics relative {metric}, "
+          f"{off} of {total} parameter elements off by > {TRAIN_ABS}, "
+          f"largest {param} (Adam's largest move {move})")
+    check(err is not None and "256-rank process group" in err,
+          f"placement (d): --production-mesh on one rank: {err}")
+    print(f"[placement] (d) launch.train.main minicpm-2b full width, 3 "
+          f"steps: in a one-rank NCCL group on make_host_mesh(model=1) "
+          f"({placed} DTensor parameters) == the plain launcher: metrics "
+          f"relative {metric:.3e}, parameters largest {param:.3e} ({off} of "
+          f"{total} above {TRAIN_ABS}); step ms median plain "
+          f"{plain_ms:.2f}, on the mesh {mesh_ms:.2f}; --production-mesh "
+          f"raised: {err}")
+    return dict(metric=metric, param=param, plain_ms=plain_ms,
+                mesh_ms=mesh_ms)
+
+
 def kernel_entry(name, source, replaces, launches, err, t):
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches, "max_abs_err": err,
@@ -3173,6 +3475,7 @@ def main(argv=None):
     torch.cuda.empty_cache()
     exp_t, fig11, fig11_grids = phase_exp(device)
     windows_t = phase_windows(device, fig11, fig11_grids)
+    fig11_rows = _rows_of(fig11_grids.grids[0].sweep_result(0).flat())
     del fig11_grids
     serve_launches, serve_captures = phase_service(device)
     analysis_launches = phase_analysis(
@@ -3191,6 +3494,11 @@ def main(argv=None):
     real = phase_sharded_step(device)
     dryrun_gaps = phase_dryrun_predictions(real)
     dryrun_cells = phase_dryrun_cells()
+    torch.cuda.empty_cache()
+    placement = dict(lanes=phase_lane_sharding(device, fig11, fig11_rows),
+                     channels=phase_channel_sharding(device, net))
+    placement.update(phase_placement_exp(device))
+    placement["launcher"] = phase_launcher_mesh(device)
     # the netsim kernels: the coop kernel's numbers, the three-pass
     # kernel's time on the same inputs beside them
     grant_entry = kernel_entry(
@@ -3231,7 +3539,11 @@ def main(argv=None):
                  **{f"windowed_K{K}": windows_t[f"K{K}"]["launches"]
                     for K in WINDOW_K},
                  windowed_restored=windows_t["launches_restored"],
-                 serve=serve_launches, analysis=analysis_launches)
+                 serve=serve_launches, analysis=analysis_launches,
+                 placement_lanes=placement["lanes"]["launches"],
+                 placement_channels=placement["channels"]["launches"],
+                 placement_exp=placement["exp"],
+                 placement_serve=placement["serve"])
     for entry, wrapper in ((grant_entry, "grant"),
                            (cycle_entry, "cycle_core")):
         entry["by_path"] = {"main": dict(
@@ -3296,6 +3608,10 @@ def main(argv=None):
           f"full width {train_full}")
     print(f"[dryrun] summary: sharded step {real}; predictions "
           f"{dryrun_gaps}; {len(dryrun_cells)} production-mesh cells ok")
+    print(f"[placement] summary: " + json.dumps(
+        {k: {n: v for n, v in d.items() if n != "launches"}
+         if "launches" in d else d for k, d in placement.items()
+         if k in ("lanes", "channels", "launcher")}))
     print(json.dumps({"kernels": [
         grant_entry,
         cycle_entry,

@@ -108,29 +108,38 @@ class SimState:
 
 
 def make_state(net: Network, cfg, NV: int, batch: tuple = (), *,
-               device=None) -> SimState:
+               ch_pad: int = 0, term_pad: int = 0,
+               blocks: tuple | None = None, device=None) -> SimState:
     """Fresh (empty-network) state; `batch` prepends lane axes (the step
     takes exactly one).  `b_pkt` is allocated with one spare channel row
     (index E) behind the returned view: the apply phase points the
     scatter rows of non-winners at it, the port's form of the
     reference's ``mode="drop"`` scatter.
 
+    `ch_pad` / `term_pad` append GHOST channels/terminals (the
+    channel-sharded fused step's padding, `fused.fused_pad`): they start
+    empty, are dead in every alive mask and never inject, so zeros are
+    already right for them.  `blocks=(Ek, Tk)` allocates only one shard's
+    blocks of the two big arrays, `b_pkt [.., Ek, ...]` and
+    `s_pkt [.., Tk, ...]`; the rest keeps the padded sizes.
+
     The record width follows `cfg.step_impl`: the fused and compact
     steps carry the cached route fields (`NUM_FUSED_FIELDS`), the oracle
     the base payload (`NUM_FIELDS`)."""
     device = resolve_device(device)
-    E, T = net.num_channels, net.num_terminals
+    E, T = net.num_channels + ch_pad, net.num_terminals + term_pad
+    Eb, Tb = (E, T) if blocks is None else blocks
     S, Q = cfg.buf_pkts, cfg.srcq_pkts
     nf = (NUM_FUSED_FIELDS
           if getattr(cfg, "step_impl", "jnp") in CACHED_ROUTE_IMPLS
           else NUM_FIELDS)
     batch = tuple(batch)
     z = lambda *s: torch.zeros(batch + s, dtype=torch.int32, device=device)
-    b_store = z(E + 1, NV, S, nf)
+    b_store = z(Eb + 1, NV, S, nf)
     return SimState(
-        b_pkt=b_store.narrow(len(batch), 0, E),
+        b_pkt=b_store.narrow(len(batch), 0, Eb),
         b_head=z(E, NV), b_count=z(E, NV),
-        s_pkt=z(T, Q, NUM_SRC_FIELDS),
+        s_pkt=z(Tb, Q, NUM_SRC_FIELDS),
         s_head=z(T), s_count=z(T),
         ch_busy=z(E),
         stats=SimStats.zeros(batch, device))

@@ -45,11 +45,33 @@ session costs one capture a signature, two when some window's length is
 not a multiple of K.  Chained windows replay the one-shot key chain, so
 `finish()` equals `run_lanes` bit for bit.
 
-Lane/channel sharding over a device mesh is not ported; `SweepResult`
-keeps its fields with their single-device values.
+Device placement (the reference's lane mesh): with more than one device
+in `host_devices` (every visible card; REPRO_HOST_DEVICES=N logical
+devices, on the CPU or round-robin on the cards) a dispatch with
+``device=None`` and at least `shard_min_work` lane-cycles spreads its
+lanes: the lanes are padded with GHOST lanes (rate 0, lane 0's key and
+fault data, dropped before the results) to a multiple of the device
+count and cut into equal chunks, each chunk's state, rates, keys and
+lane data on its device, each chunk replaying its own graph.  Every
+chunk is issued before any is read.  Logical devices on one card share
+its graphs: `CycleGraph.run` copies a chunk's state in and its counters
+out in stream order, and every chunk of a card runs on that card's one
+stream, so a chunk never sees another's buffers.  `compile_count` is
+then one capture for each distinct (graph key, card).  An explicit
+``device`` pins the whole run to that (logical) device: the runner's and
+the service's round-robin.  Placement never changes a counter.
+
+Channel sharding (REPRO_CHANNEL_SHARDS=K, fused step, ``device=None``,
+at least K devices): each lane row of K devices runs the channel-sharded
+step (`fused.ShardedStep`), the lanes spread over the rows as above.  A
+captured CUDA graph cannot span cards, so this dispatch runs the eager
+loop (one host-int cycle a step) on every device and reports
+``loop="eager"``.  `pad_fraction` is the ghost share of the dispatched
+state, lanes and channels together (the reference's formula).
 """
 from __future__ import annotations
 
+import contextlib
 import time
 from dataclasses import dataclass
 from typing import NamedTuple
@@ -59,19 +81,22 @@ import torch
 
 from ... import env_int
 from ... import random as jr
+from ...device import host_devices, physical_device
+from ...tensors import to_device
 from ..routing import share_lanes
 from ..topology import (FaultSchedule, FaultSet, Network, as_fault_schedule,
                         compose_faults, final_faults)
 from ..traffic import as_pattern
 from . import graphs
-from .fused import grant_form, make_compact_step, next_rung
+from .fused import (fused_pad, grant_form, make_compact_step,
+                    make_fused_step, next_rung)
 from .state import (SimState, SimStats, build_lane, make_state,
                     resolve_device, stack_lanes)
 from .stats import finalize, lane_stats
 # the key chains live with the cycle loop (`step.run_scan`) that draws
 # them; they are re-exported here, where the reference defines them
 from .step import (_key_chain, _key_chain_seq, make_step,  # noqa: F401
-                   run_scan, run_steps)
+                   run_steps)
 
 # the cycle loops a dispatch can run (see the module docstring)
 LOOPS = ("graph", "eager")
@@ -86,6 +111,43 @@ def compile_counter() -> int:
 def clear_aot_cache() -> None:
     """Drop the captured CUDA graphs and their memory pools."""
     graphs.clear()
+
+
+def shard_min_work() -> int:
+    """Minimum (real lanes x cycles) for a dispatch to spread its lanes
+    over several devices; smaller grids run on one.  REPRO_SHARD_MIN_WORK
+    (default 4,096; 0 always spreads, as the sharding tests do)."""
+    return env_int("REPRO_SHARD_MIN_WORK", 4096)
+
+
+def channel_shards() -> int:
+    """Requested channel-shard count K (REPRO_CHANNEL_SHARDS, default 1):
+    honoured only by fused-step dispatches with ``device=None`` and at
+    least K devices."""
+    return max(env_int("REPRO_CHANNEL_SHARDS", 1), 1)
+
+
+def lane_mesh(shards: int = 1, device=None) -> list | None:
+    """The lane rows of a dispatch on `device`'s `host_devices`: one list
+    of `shards` devices a row (the reference's 1-D ``("lanes",)`` or 2-D
+    ``("lanes", "shards")`` mesh); None with one device.  `shards` must
+    divide the device count."""
+    devs = host_devices(device)
+    nd = len(devs)
+    if nd <= 1:
+        return None
+    if nd % shards:
+        raise ValueError(f"REPRO_CHANNEL_SHARDS={shards} does not divide "
+                         f"the {nd} host devices")
+    return [devs[i:i + shards] for i in range(0, nd, shards)]
+
+
+def _on(device: torch.device):
+    """The context that makes `device` (physical) current for the launches
+    of a chunk on it."""
+    if device.type == "cuda":
+        return torch.cuda.device(device)
+    return contextlib.nullcontext()
 
 
 def superstep(span: int | None = None) -> int:
@@ -113,43 +175,49 @@ def lane_form(step, device: torch.device) -> str:
 
 
 def _scan_lanes(step, cycles: int, reset_at: int, K: int, loop: str,
-                state0, rate_pkt, keys, lanes):
+                state0, rate_pkt, keys, lanes, subs=None):
     """Advance the B lanes `cycles` cycles in lockstep through `loop`;
-    returns (final counters, captures made, capture seconds)."""
+    returns (final counters, captures made, capture seconds).  `subs`
+    is the lanes' ``[cycles, B, 2]`` subkey chain when the caller drew it
+    already, else it is drawn from `keys`."""
+    if subs is None:
+        subs = _key_chain(keys, cycles)
     if loop == "eager":
-        return (run_scan(step, cycles, reset_at, state0, rate_pkt, keys,
-                         lanes).stats, 0, 0.0)
+        return (run_steps(step, 0, subs, reset_at, state0, rate_pkt,
+                          lanes).stats, 0, 0.0)
     if loop != "graph":
         raise ValueError(f"unknown loop {loop!r}; valid: {LOOPS}")
     graph, captured = graphs.graph_for(step, K, state0, rate_pkt, lanes)
-    stats = graph.run(state0, rate_pkt, lanes, reset_at,
-                      _key_chain(keys, cycles))
+    stats = graph.run(state0, rate_pkt, lanes, reset_at, subs)
     return stats, int(captured), graph.capture_s if captured else 0.0
 
 
 def _lane_args(b: int, state0, rate_pkt, keys, lanes) -> tuple:
     """Lane b of a dispatch's (state, rates, keys, lane data), each as a
-    one-lane view (a shared lane dict stays stride-0)."""
+    one-lane view (a shared lane dict stays stride-0; no keys stay
+    None)."""
     one = lambda x: x[b:b + 1]
     st = SimState(stats=SimStats(**{k: one(v) for k, v
                                     in vars(state0.stats).items()}),
                   **{k: one(v) for k, v in vars(state0).items()
                      if k != "stats"})
-    return (st, one(rate_pkt), one(keys),
+    return (st, one(rate_pkt), None if keys is None else one(keys),
             {k: one(v) for k, v in lanes.items()})
 
 
 def _scan_lanes_seq(step, cycles: int, reset_at: int, K: int, loop: str,
-                    state0, rate_pkt, keys, lanes):
+                    state0, rate_pkt, keys, lanes, subs=None):
     """`_scan_lanes` with the lane axis OUTSIDE the cycle loop: each lane
     runs the whole loop as a one-lane dispatch (one graph serves every
     lane of a signature).  Lanes are independent and keep their key
     chains, so the counters are the lockstep form's bit for bit."""
+    if subs is None:
+        subs = _key_chain(keys, cycles)
     stats, made, capture_s = [], 0, 0.0
     for b in range(int(rate_pkt.shape[0])):
         st, m, c = _scan_lanes(step, cycles, reset_at, K, loop,
                                *_lane_args(b, state0, rate_pkt, keys,
-                                           lanes))
+                                           lanes), subs=subs[:, b:b + 1])
         stats.append(st)
         made, capture_s = made + m, capture_s + c
     return (SimStats(**{k: torch.cat([getattr(st, k) for st in stats])
@@ -181,8 +249,8 @@ class LaneRun(NamedTuple):
     # 1, the step the grid ran through
     compile_count: int
     fault_sets: list       # composed per-lane fault states (None=pristine)
-    placement: str = "single"
-    pad_fraction: float = 0.0
+    placement: str = "single"   # "single" | "lanes:L" | "lanes:L,shards:K"
+    pad_fraction: float = 0.0   # ghost share of the dispatched state
     grant_form: str = "two_pass"   # the reference's form (fused.grant_form)
     occupancy_peak: int = 0     # max live request rows over the lanes
     compact_capacity: int = 0   # compact step's final ladder rung (0=dense)
@@ -191,6 +259,8 @@ class LaneRun(NamedTuple):
     # captures (CPU, eager loop: step functions) the ABANDONED runs
     # cost, kept out of `compile_count`: each ladder rung is its own step
     escalation_compiles: int = 0
+    loop: str = "graph"         # the cycle loop that ran ("eager" for the
+                                # channel-sharded step, see the docstring)
 
 
 @dataclass
@@ -199,13 +269,12 @@ class SweepResult:
 
     For fault sweeps (`BatchedSweep.run_faults`) the row axis is the fault
     grid: `rates[i]` repeats the common offered load and `fault_fracs[i]`
-    labels row i with its failed-link fraction.  Fields with no meaning
-    in the single-device port keep the reference's single-device values
-    (`placement="single"`, `pad_fraction=0.0`); `compile_count`,
-    `compile_s` and `escalation_compiles` are as in `LaneRun`.
-    `grant_form` is the form the reference's step would compile,
-    `compact_capacity` the compact step's final rung (0 for the dense
-    steps) and `escalations` the capacity-ladder reruns."""
+    labels row i with its failed-link fraction.  `placement` and
+    `pad_fraction` are the dispatch's (see the module docstring);
+    `compile_count`, `compile_s`, `escalation_compiles` and `loop` are as
+    in `LaneRun`.  `grant_form` is the form the reference's step would
+    compile, `compact_capacity` the compact step's final rung (0 for the
+    dense steps) and `escalations` the capacity-ladder reruns."""
 
     rates: list[float]
     seeds: list[int]
@@ -222,6 +291,7 @@ class SweepResult:
     superstep: int = 1
     escalations: int = 0
     escalation_compiles: int = 0
+    loop: str = "graph"
 
     def result(self, rate_idx: int, seed_idx: int = 0):
         return self.results[rate_idx][seed_idx]
@@ -263,46 +333,67 @@ class SweepResult:
         return max(r.throughput_per_chip for r in self.mean_over_seeds())
 
 
+class _Chunk:
+    """One device's share of a dispatch: the padded lanes ``[lo, hi)`` on
+    `device` (physical), with the step, state, rates and lane data there.
+    A channel-sharded chunk (a lane row) holds one of each a shard
+    instead, and its `step` is the `fused.ShardedStep`."""
+
+    __slots__ = ("device", "lo", "hi", "step", "state", "rates", "lanes")
+
+    def __init__(self, device, lo, hi, step, state, rates, lanes):
+        self.device, self.lo, self.hi = device, lo, hi
+        self.step, self.state = step, state
+        self.rates, self.lanes = rates, lanes
+
+
 class _LanePlan:
     """A prepared — and on the graph loop captured — lane dispatch that
     has not run yet (`BatchedSweep.warm_compile`); single-use."""
 
-    def __init__(self, lanes, fault_sets, args, step, K, form, compile_s,
-                 compile_count, grant_form):
+    def __init__(self, lanes, fault_sets, keys, chunks, step, K, form,
+                 compile_s, compile_count, grant_form, placement,
+                 pad_fraction, device, shards):
         self.lanes, self.fault_sets = lanes, fault_sets
-        self.args = args          # (state0, rates, keys, lane data)
+        self.keys = keys          # [Bp, 2] on the CPU, ghosts included
+        self.chunks = chunks      # list of _Chunk, in lane order
         self.step, self.K, self.form = step, K, form
         self.compile_s, self.compile_count = compile_s, compile_count
         self.grant_form = grant_form
+        self.placement, self.pad_fraction = placement, pad_fraction
+        self.device = device      # the pinned device, or None
+        self.shards = shards      # channel shards a lane row (1: none)
         self.capacity = getattr(step, "compact_capacity", 0)
         self.rows = getattr(step, "compact_rows", 0)
         self.used = False
 
 
 class _PendingLanes:
-    """An issued `run_lanes_async` call: the cycle loop has been issued
-    (a CUDA device runs it asynchronously); `finish()` waits for the
-    counters, builds the per-lane `SimResult`s, and escalates a compact
-    run whose live set outgrew its rung."""
+    """An issued `run_lanes_async` call: every chunk's cycle loop has been
+    issued (a CUDA device runs it asynchronously); `finish()` waits for
+    the counters, builds the per-lane `SimResult`s, and escalates a
+    compact run whose live set outgrew its rung."""
 
     def __init__(self, sweep, stats, plan, t0, run_capture_s):
         self._sweep, self._stats, self._plan = sweep, stats, plan
         self._t0, self._run_capture_s = t0, run_capture_s
 
     def finish(self) -> LaneRun:
-        stats = SimStats(**{k: v.cpu() for k, v in vars(self._stats).items()})
+        stats = _host_stats(self._stats)
         wall = time.perf_counter() - self._t0 - self._run_capture_s
         sweep, cfg, plan = self._sweep, self._sweep.cfg, self._plan
-        occ = int(stats.occ_peak.max())
+        B = len(plan.lanes)
+        occ = int(stats.occ_peak[:B].max())
         if plan.capacity and occ > plan.capacity:
             # capacity breach: every cycle after the crossing arbitrated
             # over a TRUNCATED active set, so nothing of this run is kept.
-            # Re-run the whole grid at the next rung; the rerun is
-            # deterministic, so its result is the oracle's.  `occ` is
-            # exact and the top rung C = N cannot breach.
+            # Re-run the whole grid at the next rung with the same
+            # placement; the rerun is deterministic, so its result is the
+            # oracle's.  `occ` is exact and the top rung C = N cannot
+            # breach.
             rung = next_rung(plan.rows, occ)
             sweep._capacity_floor = max(sweep._capacity_floor, rung)
-            redo = sweep.run_lanes_async(plan.lanes,
+            redo = sweep.run_lanes_async(plan.lanes, device=plan.device,
                                          capacity=rung).finish()
             return redo._replace(
                 wall_s=redo.wall_s + wall,
@@ -312,11 +403,11 @@ class _PendingLanes:
                                      + plan.compile_count))
         results = [finalize(lane_stats(stats, i), cfg, plan.lanes[i][0],
                             sweep._chips(plan.fault_sets[i]))
-                   for i in range(len(plan.lanes))]
+                   for i in range(B)]         # ghost lanes excluded
         return LaneRun(results, wall, plan.compile_s, plan.compile_count,
-                       plan.fault_sets, grant_form=plan.grant_form,
-                       occupancy_peak=occ, compact_capacity=plan.capacity,
-                       superstep=plan.K)
+                       plan.fault_sets, plan.placement, plan.pad_fraction,
+                       plan.grant_form, occ, plan.capacity, plan.K,
+                       loop="eager" if plan.shards > 1 else sweep.loop)
 
 
 def _host(v: torch.Tensor) -> np.ndarray:
@@ -325,12 +416,30 @@ def _host(v: torch.Tensor) -> np.ndarray:
     return v.detach().to("cpu", copy=True).numpy()
 
 
+def _host_stats(parts: list) -> SimStats:
+    """The counters of a dispatch's chunks, in lane order, on the CPU
+    (waits for each chunk)."""
+    return SimStats(**{k: torch.cat([getattr(p, k).cpu() for p in parts])
+                       for k in vars(parts[0])})
+
+
 def _host_state(state: SimState) -> SimState:
     """A `SimState` of host numpy arrays (`b_pkt` without its sink row)."""
     return SimState(stats=SimStats(**{k: _host(v) for k, v
                                       in vars(state.stats).items()}),
                     **{k: _host(v) for k, v in vars(state).items()
                        if k != "stats"})
+
+
+def _host_states(states: list) -> SimState:
+    """`_host_state` of chunk states, joined on the lane axis."""
+    parts = [_host_state(s) for s in states]
+    join = lambda get: np.concatenate([get(p) for p in parts])
+    return SimState(
+        stats=SimStats(**{k: join(lambda p, k=k: getattr(p.stats, k))
+                          for k in vars(parts[0].stats)}),
+        **{k: join(lambda p, k=k: getattr(p, k)) for k in vars(parts[0])
+           if k != "stats"})
 
 
 def _snapshot_signature(state) -> tuple:
@@ -344,9 +453,12 @@ def _snapshot_signature(state) -> tuple:
     return tuple(out)
 
 
-def _load_state(state: SimState, host: SimState) -> None:
-    """Copy a host snapshot into the device buffers of `state`."""
-    put = lambda dst, src: dst.copy_(torch.as_tensor(np.asarray(src)))
+def _load_state(state: SimState, host: SimState, lo: int = 0) -> None:
+    """Copy the lanes ``[lo, lo + B)`` of a host snapshot into the device
+    buffers of `state` (B lanes)."""
+    B = state.b_head.shape[0]
+    put = lambda dst, src: dst.copy_(torch.as_tensor(
+        np.asarray(src)[lo:lo + B]))
     for k, v in vars(state).items():
         if k != "stats":
             put(v, getattr(host, k))
@@ -354,30 +466,54 @@ def _load_state(state: SimState, host: SimState) -> None:
         put(v, getattr(host.stats, k))
 
 
+def _lanes_on(lane_data: dict, lo: int, hi: int,
+              device: torch.device) -> dict:
+    """Lanes ``[lo, hi)`` of `lane_data` on physical `device` (views where
+    they are already there; a shared lane stays a stride-0 view)."""
+    return {k: to_device(v[lo:hi], device) for k, v in lane_data.items()}
+
+
+def _pad_lanes(rates, keys, lane_data, pad: int):
+    """Ghost lanes: `pad` more lanes at offered rate 0 (inject generates
+    nothing) with lane 0's key and fault data (a shared lane dict stays
+    shared); their counters are never read back."""
+    if not pad:
+        return rates, keys, lane_data
+    Bp = rates.shape[0] + pad
+    rates = torch.cat([rates, rates.new_zeros(pad)])
+    keys = torch.cat([keys, keys[:1].expand(pad, 2)])
+    grow = lambda v, n: v[:1].expand((n,) + tuple(v.shape[1:]))
+    lane_data = {k: grow(v, Bp) if v.stride(0) == 0
+                 else torch.cat([v, grow(v, pad)])
+                 for k, v in lane_data.items()}
+    return rates, keys, lane_data
+
+
 class LaneSession:
     """A paused, resumable lane dispatch advanced window by window
     (`BatchedSweep.start_lanes`).
 
-    The session holds the lanes' `SimState` on the device, their keys
-    (``[Bp, 2]`` int64 words on the CPU, where the chain is drawn) and
-    the absolute cycle between windows.  `advance` runs one window's real
-    cycles (see the module docstring); chained windows replay the
-    one-shot key chain, so `finish()` equals `run_lanes` on the same lane
-    triples.  `export()` snapshots the dynamic state to host numpy
-    arrays; `start_lanes(..., restore=snapshot)` resumes from it bit for
-    bit, since the state, the keys and the cycle are the whole of it."""
+    The session holds its chunks' `SimState`s on their devices (one chunk
+    unless its lanes are spread), the lanes' keys (``[Bp, 2]`` int64 words
+    on the CPU, where the chain is drawn) and the absolute cycle between
+    windows.  `advance` runs one window's real cycles (see the module
+    docstring) on every chunk; chained windows replay the one-shot key
+    chain, so `finish()` equals `run_lanes` on the same lane triples.
+    `export()` snapshots the dynamic state to host numpy arrays, the
+    chunks joined; `start_lanes(..., restore=snapshot)` resumes from it
+    bit for bit, since the state, the keys and the cycle are the whole of
+    it."""
 
     def __init__(self, sweep, lane_triples, fault_sets, window, total,
-                 cycle, state, keys, step, superstep, rate_pkt, lane_data,
+                 cycle, chunks, keys, step, superstep, placement,
                  pad_fraction, grant_form):
         self.sweep = sweep
         self.lane_triples = lane_triples
         self.fault_sets = fault_sets
         self.window, self.total, self.cycle = window, total, cycle
-        self.state, self.keys = state, keys
+        self.chunks, self.keys = chunks, keys
         self.step, self.superstep = step, superstep
-        self._rate_pkt, self._lane_data = rate_pkt, lane_data
-        self.placement = "single"
+        self.placement = placement
         self.pad_fraction = pad_fraction
         self.grant_form = grant_form
         self.capacity = getattr(step, "compact_capacity", 0)
@@ -390,39 +526,43 @@ class LaneSession:
         return self.cycle >= self.total
 
     def advance(self) -> int:
-        """Run one window (`window` cycles, clipped at the budget);
-        returns the new absolute cycle."""
+        """Run one window (`window` cycles, clipped at the budget) on
+        every chunk, each issued before any is read; returns the new
+        absolute cycle."""
         if self.done():
             return self.cycle
         real = min(self.window, self.total - self.cycle)
         keys, subs = _key_chain_seq(self.keys, real)
-        subs = subs.to(self.sweep.device)
         reset_at = self.sweep.cfg.warmup
-        if self.sweep.loop == "eager":
-            self.state = run_steps(self.step, self.cycle, subs, reset_at,
-                                   self.state, self._rate_pkt,
-                                   self._lane_data)
-        else:
-            main = real - real % self.superstep
-            t = self.cycle
-            for k, n in ((self.superstep, main), (1, real - main)):
-                if n:
-                    graph, _ = graphs.graph_for(self.step, k, self.state,
-                                                self._rate_pkt,
-                                                self._lane_data)
-                    graph.advance(self.state, self._rate_pkt,
-                                  self._lane_data, reset_at,
-                                  subs[t - self.cycle:t - self.cycle + n], t)
-                    t += n
+        for ch in self.chunks:
+            with _on(ch.device):
+                self._advance_chunk(ch, subs[:, ch.lo:ch.hi].to(ch.device),
+                                    real, reset_at)
         self.keys = keys[real]
         self.cycle += real
         return self.cycle
 
+    def _advance_chunk(self, ch, subs, real, reset_at) -> None:
+        if self.sweep.loop == "eager":
+            ch.state = run_steps(ch.step, self.cycle, subs, reset_at,
+                                 ch.state, ch.rates, ch.lanes)
+            return
+        main = real - real % self.superstep
+        t = self.cycle
+        for k, n in ((self.superstep, main), (1, real - main)):
+            if n:
+                graph, _ = graphs.graph_for(ch.step, k, ch.state, ch.rates,
+                                            ch.lanes)
+                graph.advance(ch.state, ch.rates, ch.lanes, reset_at,
+                              subs[t - self.cycle:t - self.cycle + n], t)
+                t += n
+
     def stats_host(self) -> SimStats:
         """The per-lane counters as host numpy arrays (leading axis the
         padded lane count; the real lanes come first)."""
-        return SimStats(**{k: _host(v)
-                           for k, v in vars(self.state.stats).items()})
+        return SimStats(**{k: np.concatenate(
+            [_host(getattr(ch.state.stats, k)) for ch in self.chunks])
+            for k in vars(self.chunks[0].state.stats)})
 
     def lane_stats(self, i: int) -> SimStats:
         """Real lane i's current counters (host)."""
@@ -431,7 +571,7 @@ class LaneSession:
     def export(self) -> dict:
         """The session's dynamic state as host arrays: ``{"state":
         SimState of numpy, "keys": [Bp, 2] int64, "cycle": int}``."""
-        return dict(state=_host_state(self.state),
+        return dict(state=_host_states([ch.state for ch in self.chunks]),
                     keys=self.keys.numpy().copy(), cycle=int(self.cycle))
 
     def finish(self) -> LaneRun:
@@ -441,8 +581,8 @@ class LaneSession:
             raise ValueError(
                 f"session at cycle {self.cycle}/{self.total}: advance() "
                 f"to the full budget before finish()")
-        stats = SimStats(**{k: v.cpu()
-                            for k, v in vars(self.state.stats).items()})
+        stats = SimStats(**{k: torch.as_tensor(v)
+                            for k, v in vars(self.stats_host()).items()})
         occ = int(stats.occ_peak[:self.num_lanes].max())
         if self.capacity and occ > self.capacity:
             # a session cannot escalate: its snapshots and streamed stats
@@ -459,7 +599,8 @@ class LaneSession:
                    for i in range(self.num_lanes)]
         return LaneRun(results, 0.0, self.compile_s, self.compile_count,
                        self.fault_sets, self.placement, self.pad_fraction,
-                       self.grant_form, occ, self.capacity, self.superstep)
+                       self.grant_form, occ, self.capacity, self.superstep,
+                       loop=sweep.loop)
 
 
 class BatchedSweep:
@@ -467,7 +608,13 @@ class BatchedSweep:
     (rate, seed, fault) lane.  `faults` degrades every lane with one fault
     state; `run_faults` runs a grid of different fault states together.
     `loop` names the cycle loop (`LOOPS`, default "graph"): the eager one
-    is the parity yardstick and runs only when named."""
+    is the parity yardstick and runs only when named.  `device` is the
+    sweep's own device; a run may spread over `host_devices(device)` or
+    be pinned to one of them (see the module docstring).  Its steps live
+    in one cache keyed by (physical devices, channel shards, compact rung),
+    seeded with its own `step` on its own device; `lane0` is built on the
+    sweep's device and a chunk elsewhere takes its rows through
+    `to_device`."""
 
     def __init__(self, net: Network, cfg, pattern, inject_mask=None,
                  step=None, consts=None, faults: FaultSet | None = None,
@@ -480,10 +627,15 @@ class BatchedSweep:
         pattern = as_pattern(pattern, inject_mask)
         if step is None:
             step, consts = make_step(net, cfg, pattern, device=self.device)
+        compact = getattr(cfg, "step_impl", "jnp") == "compact"
+        # the rung the sweep's own step was built at (0: not compact)
+        self._rung0 = (getattr(step, "compact_capacity", 0) or 0
+                       if compact else 0)
+        self._base = ((physical_device(self.device),), 1, self._rung0)
+        self._steps: dict = {}      # (physical devices, shards, rung)
         self.step, self.consts = step, consts
         self.NV = consts["NV"]
         self._pattern = pattern
-        self._compact_steps: dict[int, object] = {}
         self._capacity_floor = 0    # highest escalated rung seen so far
         self.faults = faults
         self.lane0 = (build_lane(net, cfg, faults, device=self.device)
@@ -497,19 +649,41 @@ class BatchedSweep:
         return offered_to_rate_pkt(offered_per_chip, self.cfg,
                                    self.terms_per_chip)
 
-    def _compact_step(self, C: int):
-        """The capacity-C compact step (memoized per ladder rung: the base
-        `self.step` for its own rung, a fresh build otherwise)."""
-        step = self._compact_steps.get(C)
+    @property
+    def step(self):
+        """The sweep's own step: on its device, at its first rung."""
+        return self._steps[self._base]
+
+    @step.setter
+    def step(self, step) -> None:
+        self._steps[self._base] = step
+
+    def _step_for(self, row: list, shards: int = 1, capacity=None):
+        """The dispatch's step on lane row `row` (logical devices, one a
+        channel shard): the K-way channel-sharded fused step when
+        `shards` > 1, else, on ``row[0]``, the compact step at `capacity`
+        (without it, at the rung this sweep escalated to, else its first)
+        or the base step.  Built once for each (physical devices, shards,
+        rung)."""
+        compact = getattr(self.cfg, "step_impl", "jnp") == "compact"
+        C = ((int(capacity) if capacity is not None
+              else self._capacity_floor or self._rung0)
+             if compact and shards == 1 else 0)
+        key = (tuple(physical_device(d) for d in row), shards, C)
+        step = self._steps.get(key)
         if step is None:
-            if getattr(self.step, "compact_capacity", None) == C:
-                step = self.step
-            else:
-                step, _ = make_compact_step(self.net, self.cfg,
-                                            self._pattern, capacity=C,
-                                            device=self.device)
-            self._compact_steps[C] = step
+            step = self._steps[key] = self._build_step(row, shards, C)
         return step
+
+    def _build_step(self, row: list, shards: int, C: int):
+        if shards > 1:
+            return make_fused_step(self.net, self.cfg, self._pattern,
+                                   shards=shards, devices=row)[0]
+        dev = physical_device(row[0])
+        if C:
+            return make_compact_step(self.net, self.cfg, self._pattern,
+                                     capacity=C, device=dev)[0]
+        return make_step(self.net, self.cfg, self._pattern, device=dev)[0]
 
     def _chips(self, faults) -> float:
         """Accepted-throughput divisor: chips weighted by the fraction of
@@ -559,62 +733,114 @@ class BatchedSweep:
             lane_data = stack_lanes([memo[f] for f in fsets], epochs=epochs)
         return lanes, rates, keys, lane_data, fsets
 
-    def _plan(self, lanes, capacity=None) -> _LanePlan:
-        """Prepare one dispatch and, on the graph loop, capture its graph
-        (a cache hit captures nothing).  `capacity` pins the compact
-        step's ladder rung (the escalation rerun re-enters here with the
-        next rung up); without it a sweep that escalated before starts at
-        that rung."""
+    def _placement(self, B: int, cycles: int, device, fused: bool):
+        """The reference's placement rule for a dispatch of B lanes:
+        (lane rows, channel shards).  Rows are lists of (logical) devices,
+        one a channel shard; one row of one device when nothing spreads.
+        A pinned `device` never spreads; REPRO_CHANNEL_SHARDS=K takes
+        fused dispatches onto rows of K when there are at least K
+        devices; otherwise lanes spread over every device from
+        `shard_min_work` lane-cycles on."""
+        if device is not None:
+            return [[torch.device(device)]], 1
+        nd = len(host_devices(self.device))
+        K = channel_shards() if fused else 1
+        if K > 1 and nd >= K:
+            return lane_mesh(K, self.device), K
+        if nd > 1 and B > 1 and B * cycles >= shard_min_work():
+            return lane_mesh(1, self.device), 1
+        return [[self.device]], 1
+
+    def _plan(self, lanes, device=None, capacity=None) -> _LanePlan:
+        """Prepare one dispatch, place it (`_placement`) and, on the graph
+        loop, capture each chunk's graph (a cache hit captures nothing).
+        `capacity` pins the compact step's ladder rung (the escalation
+        rerun re-enters here with the next rung up); without it a sweep
+        that escalated before starts at that rung."""
         lanes, rates, keys, lane_data, fsets = self._prepare_lanes(lanes)
         cfg = self.cfg
+        B = len(lanes)
+        cycles = cfg.warmup + cfg.measure
         impl = getattr(cfg, "step_impl", "jnp")
-        if impl == "compact" and capacity is not None:
-            step = self._compact_step(int(capacity))
-        elif impl == "compact" and self._capacity_floor:
-            step = self._compact_step(self._capacity_floor)
-        else:
-            step = self.step
-        gform = (grant_form(self.net, cfg) if impl in ("fused", "compact")
-                 else "two_pass")
-        K = 1 if self.loop == "eager" else superstep(cfg.warmup
-                                                     + cfg.measure)
-        form = lane_form(step, self.device)
-        state0 = make_state(self.net, cfg, self.NV, batch=(len(lanes),),
-                            device=self.device)
-        keys = keys.to(self.device)
-        compile_s, compiles = 0.0, 1
-        if self.loop == "graph" and self.device.type == "cuda":
-            st0, r, _, fl = (
-                (state0, rates, keys, lane_data) if form == "lockstep"
-                else _lane_args(0, state0, rates, keys, lane_data))
-            graph, captured = graphs.graph_for(step, K, st0, r, fl)
-            compile_s = graph.capture_s if captured else 0.0
-            compiles = int(captured)
-        return _LanePlan(lanes, fsets, (state0, rates, keys, lane_data),
-                         step, K, form, compile_s, compiles, gform)
+        rows, shards = self._placement(B, cycles, device, impl == "fused")
+        L = len(rows)
+        pad = (-B) % L
+        ch_pad = fused_pad(self.net, shards)[0] if shards > 1 else 0
+        E = self.net.num_channels
+        pad_fraction = 1.0 - (B * E) / ((B + pad) * (E + ch_pad))
+        placement = ("single" if device is not None or len(rows[0]) * L == 1
+                     else f"lanes:{L},shards:{shards}" if shards > 1
+                     else f"lanes:{L}")
+        rates, keys, lane_data = _pad_lanes(rates, keys, lane_data, pad)
+        c = (B + pad) // L
+        gform = (grant_form(self.net, cfg, shards)
+                 if impl in ("fused", "compact") else "two_pass")
+        K = (1 if self.loop == "eager" or shards > 1
+             else superstep(cycles))
+        compile_s, compiles, chunks = 0.0, 1, []
+        for j, row in enumerate(rows):
+            lo, hi = j * c, (j + 1) * c
+            step = self._step_for(row, shards, capacity)
+            if shards > 1:
+                lane_j = {k: v[lo:hi] for k, v in lane_data.items()}
+                chunks.append(_Chunk(
+                    step.physical[0], lo, hi, step,
+                    step.make_states((c,)), step.place(rates[lo:hi]),
+                    step.place(lane_j)))
+                continue
+            dev = physical_device(row[0])
+            chunks.append(_Chunk(
+                dev, lo, hi, step,
+                make_state(self.net, cfg, self.NV, batch=(c,), device=dev),
+                rates[lo:hi].to(dev), _lanes_on(lane_data, lo, hi, dev)))
+        step = chunks[0].step
+        form = lane_form(step, chunks[0].device) if shards == 1 else \
+            "lockstep"
+        if self.loop == "graph" and shards == 1 and any(
+                ch.device.type == "cuda" for ch in chunks):
+            compiles = 0
+            for ch in chunks:
+                st0, r, _, fl = (
+                    (ch.state, ch.rates, None, ch.lanes)
+                    if form == "lockstep"
+                    else _lane_args(0, ch.state, ch.rates, keys, ch.lanes))
+                with _on(ch.device):
+                    graph, captured = graphs.graph_for(ch.step, K, st0, r,
+                                                       fl)
+                if captured:
+                    compile_s += graph.capture_s
+                    compiles += 1
+        return _LanePlan(lanes, fsets, keys, chunks, step, K, form,
+                         compile_s, compiles, gform, placement,
+                         pad_fraction, device, shards)
 
-    def warm_compile(self, lanes) -> _LanePlan:
-        """Prepare the lane grid and capture its graph without running it
-        (nothing to capture on the CPU or the eager loop); hand the plan to
+    def warm_compile(self, lanes, device=None) -> _LanePlan:
+        """Prepare the lane grid, placed on `device` or spread (see
+        `_plan`), and capture its graphs without running it (nothing to
+        capture on the CPU or the eager loop); hand the plan to
         `run_lanes_async(plan=...)`."""
-        return self._plan(lanes)
+        return self._plan(lanes, device=device)
 
-    def start_lanes(self, lanes, *, window: int, pad_to: int | None = None,
-                    force_stack: bool = False, epochs: int | None = None,
+    def start_lanes(self, lanes, *, window: int, device=None,
+                    pad_to: int | None = None, force_stack: bool = False,
+                    epochs: int | None = None,
                     restore: dict | None = None) -> "LaneSession":
         """Open a windowed `LaneSession` over `lanes` instead of running
         the whole cycle budget at once.
 
         `window` is the cycles a window advances (the last one only the
-        cycles left).  `pad_to` ghost-pads the lane axis to a fixed batch
-        (rate-0 lanes, dropped from the results) so packs of one
-        signature share one graph; `force_stack` keeps the fault axis
-        stacked and `epochs` pins the schedule form padded to that many
-        epochs, for the same reason.  `restore` resumes from an earlier
-        session's `export()` (same lanes, padding and config), bit for
-        bit.  The session's graphs are made here: K = `superstep(window)`
-        and, when some window's length is not a multiple of K, a K = 1
-        graph for its tail."""
+        cycles left).  `device` pins the session to one device; with None
+        its lanes spread as a dispatch's do (`_placement`, channel shards
+        ignored, as the reference's sessions ignore them).  `pad_to`
+        ghost-pads the lane axis to a fixed batch (rate-0 lanes, dropped
+        from the results) so packs of one signature share one graph;
+        `force_stack` keeps the fault axis stacked and `epochs` pins the
+        schedule form padded to that many epochs, for the same reason.
+        `restore` resumes from an earlier session's `export()` (same
+        lanes, padding, placement and config), bit for bit.  The session's
+        graphs are made here: K = `superstep(window)` and, when some
+        window's length is not a multiple of K, a K = 1 graph for its
+        tail."""
         if window < 1:
             raise ValueError(f"window must be >= 1 cycles, got {window}")
         lanes, rates, keys, lane_data, fsets = self._prepare_lanes(
@@ -623,34 +849,22 @@ class BatchedSweep:
         B = len(lanes)
         if pad_to is not None and pad_to < B:
             raise ValueError(f"pad_to={pad_to} < {B} lanes")
-        Bp = max(B, pad_to or 0)
-        pad = Bp - B
-        if pad:
-            # ghost lanes: offered rate 0 (inject generates nothing), lane
-            # 0's key and fault data (a shared lane dict stays shared);
-            # their stats are never read back
-            rates = torch.cat([rates, rates.new_zeros(pad)])
-            keys = torch.cat([keys, keys[:1].expand(pad, 2)])
-            grow = lambda v, n: v[:1].expand((n,) + tuple(v.shape[1:]))
-            lane_data = {k: grow(v, Bp) if v.stride(0) == 0
-                         else torch.cat([v, grow(v, pad)])
-                         for k, v in lane_data.items()}
+        target = max(B, pad_to or 0)
+        total = cfg.warmup + cfg.measure
+        rows, _ = self._placement(target, total, device, False)
+        L = len(rows)
+        Bp = target + (-target) % L
+        rates, keys, lane_data = _pad_lanes(rates, keys, lane_data, Bp - B)
+        placement = "single" if L == 1 else f"lanes:{L}"
         impl = getattr(cfg, "step_impl", "jnp")
         gform = (grant_form(self.net, cfg) if impl in ("fused", "compact")
                  else "two_pass")
-        step = self.step
-        if impl == "compact" and self._capacity_floor:
-            # a session cannot escalate mid-run (`finish` raises on a
-            # breach), so it starts at the highest rung this sweep has
-            # had to escalate to
-            step = self._compact_step(self._capacity_floor)
-        total = cfg.warmup + cfg.measure
-        state = make_state(self.net, cfg, self.NV, batch=(Bp,),
-                           device=self.device)
         cycle = 0
         if restore is not None:
+            want = make_state(self.net, cfg, self.NV, batch=(Bp,),
+                              device="meta")
             if (_snapshot_signature(restore["state"]) !=
-                    _snapshot_signature(state)
+                    _snapshot_signature(want)
                     or tuple(np.shape(restore["keys"])) != tuple(keys.shape)):
                 raise ValueError(
                     "restore snapshot does not match this session's lane "
@@ -659,53 +873,85 @@ class BatchedSweep:
             if not 0 <= cycle <= total:
                 raise ValueError(
                     f"restore cycle {cycle} outside [0, {total}]")
-            _load_state(state, restore["state"])
             keys = torch.as_tensor(np.asarray(restore["keys"]),
                                    dtype=torch.int64)
+        c = Bp // L
+        chunks = []
+        for j, row in enumerate(rows):
+            dev = physical_device(row[0])
+            # a session cannot escalate mid-run (`finish` raises on a
+            # breach), so it starts at the highest rung this sweep has
+            # had to escalate to
+            step = self._step_for(row)
+            state = make_state(self.net, cfg, self.NV, batch=(c,),
+                               device=dev)
+            if restore is not None:
+                _load_state(state, restore["state"], j * c)
+            chunks.append(_Chunk(dev, j * c, (j + 1) * c, step, state,
+                                 rates[j * c:(j + 1) * c].to(dev),
+                                 _lanes_on(lane_data, j * c, (j + 1) * c,
+                                           dev)))
         K = 1 if self.loop == "eager" else superstep(window)
         session = LaneSession(self, lanes, fsets, window, total, cycle,
-                              state, keys, step, K, rates, lane_data,
+                              chunks, keys, chunks[0].step, K, placement,
                               1.0 - B / Bp, gform)
         if self.loop == "graph":
             # every window but the last is `window` cycles, a multiple of K
             before, t0 = graphs.builds(), time.perf_counter()
             tail = (total - cycle) % window % K
-            for k in ((K, 1) if K > 1 and tail else (K,)):
-                graphs.graph_for(step, k, state, rates, lane_data)
+            for ch in chunks:
+                with _on(ch.device):
+                    for k in ((K, 1) if K > 1 and tail else (K,)):
+                        graphs.graph_for(ch.step, k, ch.state, ch.rates,
+                                         ch.lanes)
             session.compile_count = graphs.builds() - before
             session.compile_s = (time.perf_counter() - t0
                                  if session.compile_count else 0.0)
         return session
 
-    def run_lanes_async(self, lanes=None, capacity=None,
+    def run_lanes_async(self, lanes=None, device=None, capacity=None,
                         plan: _LanePlan | None = None) -> _PendingLanes:
-        """Issue the lane grid's cycle loop without waiting for its
-        counters (`capacity` as in `_plan`; `plan` runs a `warm_compile`
-        plan instead of preparing anew)."""
+        """Issue the lane grid's cycle loop on every chunk without waiting
+        for its counters (`device` and `capacity` as in `_plan`; `plan`
+        runs a `warm_compile` plan instead of preparing anew)."""
         if plan is None:
-            plan = self._plan(lanes, capacity=capacity)
+            plan = self._plan(lanes, device=device, capacity=capacity)
         if plan.used:
             raise ValueError("a lane plan is single-use: warm_compile a "
                              "fresh one")
         plan.used = True
         cfg = self.cfg
-        scan = _scan_lanes if plan.form == "lockstep" else _scan_lanes_seq
+        cycles = cfg.warmup + cfg.measure
         t0 = time.perf_counter()
-        stats, made, capture_s = scan(plan.step, cfg.warmup + cfg.measure,
-                                      cfg.warmup, plan.K, self.loop,
-                                      *plan.args)
-        plan.args = None
+        subs = _key_chain(plan.keys, cycles)         # on the CPU, [c, Bp, 2]
+        if plan.shards > 1:
+            stats, made, capture_s = _run_sharded(plan.chunks, cycles,
+                                                  cfg.warmup, subs), 0, 0.0
+        else:
+            scan = (_scan_lanes if plan.form == "lockstep"
+                    else _scan_lanes_seq)
+            stats, made, capture_s = [], 0, 0.0
+            for ch in plan.chunks:
+                with _on(ch.device):
+                    st, m, cs = scan(ch.step, cycles, cfg.warmup, plan.K,
+                                     self.loop, ch.state, ch.rates, None,
+                                     ch.lanes,
+                                     subs=subs[:, ch.lo:ch.hi].to(ch.device))
+                stats.append(st)
+                made, capture_s = made + m, capture_s + cs
+        plan.chunks = None
         plan.compile_count += made
         plan.compile_s += capture_s
         return _PendingLanes(self, stats, plan, t0, capture_s)
 
-    def run_lanes(self, lanes) -> LaneRun:
+    def run_lanes(self, lanes, device=None) -> LaneRun:
         """One batched run over a list of `(offered_per_chip, seed, faults)`
         lane triples, where `faults` is a `FaultSet`, a warm
         `FaultSchedule`, or None; each composes on top of the sweep's base
-        `faults`.  Returns a `LaneRun` (one `SimResult` per lane, in
-        order)."""
-        return self.run_lanes_async(lanes).finish()
+        `faults`.  `device` pins the run to one device; None places it
+        (see the module docstring).  Returns a `LaneRun` (one `SimResult`
+        per lane, in order)."""
+        return self.run_lanes_async(lanes, device=device).finish()
 
     def run(self, rates, seeds=None) -> SweepResult:
         cfg = self.cfg
@@ -753,11 +999,28 @@ class BatchedSweep:
                            fault_fracs=fracs, **_run_fields(run))
 
 
+def _run_sharded(chunks: list, cycles: int, reset_at: int, subs) -> list:
+    """The channel-sharded dispatch's eager loop: every lane row's
+    `ShardedStep` one host-int cycle at a time, the rows interleaved
+    cycle by cycle (so rows on different cards run together), the warmup
+    reset on every shard.  Returns each row's lead-shard counters."""
+    keys = [ch.step.place(subs[:, ch.lo:ch.hi]) for ch in chunks]
+    for t in range(cycles):
+        for ch, k in zip(chunks, keys):
+            ch.state, _ = ch.step(ch.state, (t, [x[t] for x in k],
+                                             ch.rates, ch.lanes))
+            if t == reset_at:
+                ch.state = ch.step.reset_stats(ch.state)
+    return [ch.state[0].stats for ch in chunks]
+
+
 def _run_fields(run: LaneRun) -> dict:
     """The `LaneRun` telemetry a `SweepResult` carries over."""
-    return dict(grant_form=run.grant_form,
+    return dict(placement=run.placement, pad_fraction=run.pad_fraction,
+                grant_form=run.grant_form,
                 occupancy_peak=run.occupancy_peak,
                 compact_capacity=run.compact_capacity,
                 superstep=run.superstep,
                 escalations=run.escalations,
-                escalation_compiles=run.escalation_compiles)
+                escalation_compiles=run.escalation_compiles,
+                loop=run.loop)

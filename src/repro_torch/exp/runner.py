@@ -4,25 +4,32 @@
 `run_experiment(spec)` iterates the outer-product cells
 (topology x routing x traffic) and runs each cell's whole lane grid
 (faults x rates x seeds) as ONE `BatchedSweep.run_lanes` dispatch, in two
-passes: first every cell is prepared and its CUDA graph captured
-(`BatchedSweep.warm_compile`), then each cell in turn is dispatched
-(`run_lanes_async`) and materialised, so a cell's `wall_s` is its own run
-(no capture, no other cell's work; the reference dispatches every cell
-before it materialises any, to overlap cells on several devices).  The
-two passes go over chunks of at most `graphs.GRAPHS_KEPT` cells, so no
-cell's graph is evicted from the graph cache before it runs (which would
-capture it twice) and the graphs held between the passes are bounded by
-the cache's size, not by the spec's cells.  Cells that share an
-identical step (same topology, routing, traffic, cycle budget and
-device) reuse one `BatchedSweep` through a process-wide cache, so
-re-running a spec captures nothing while its cells fit
-`graphs.GRAPHS_KEPT`; a spec with more cells than that captures once a
-cell on each run.
+passes over chunks of at most `graphs.GRAPHS_KEPT` cells: first every
+cell of the chunk is prepared and its CUDA graphs captured
+(`BatchedSweep.warm_compile`), so no cell's `wall_s` holds a capture;
+then the cells run.  The chunks keep every cell's graph in the graph
+cache until it runs (no cell captures twice) and bound the graphs held
+between the passes.  Cells that share an identical step (same topology,
+routing, traffic, cycle budget and device) reuse one `BatchedSweep`
+through a process-wide cache, so re-running a spec captures nothing
+while its cells fit `graphs.GRAPHS_KEPT`; a spec with more cells than
+that captures once a cell on each run.
 
-The runner runs on one device (`device=None` resolves to CUDA, or raises
-without it; tests pass ``device="cpu"``): every grid's `placement` is
-"single" and its `pad_fraction` 0.0.  The reference's round-robin of
-cells over devices and its lane meshes are not ported.
+Device placement, the reference's rule (`device=None` resolves to CUDA,
+or raises without it; tests pass ``device="cpu"``): with one device in
+`host_devices(device)` every cell runs there.  With N > 1 devices
+(several cards, or REPRO_HOST_DEVICES=N logical devices) a spec of at
+least N cells ROUND-ROBINS them, cell i pinned to device ``i % N``,
+except cells on networks of more than `rr_max_channels` channels, which
+stay unpinned (placed by the sweep, like any ``device=None`` dispatch);
+a spec of fewer cells than devices leaves every cell unpinned, so each
+grid spreads its lanes over the devices.  `GridResult.device` and
+`placement` report what ran.  On several cards every cell of a chunk is
+issued before any is read (the reference's passes 2 and 3), so the
+cards run together; on one card (logical devices share it) each cell
+runs and is read in turn, so each `wall_s` is that cell's own run.
+Either way the rows are the single-device run's: placement never
+changes a counter.
 
 `cells(spec)` exposes the same lowering without running anything.
 """
@@ -34,12 +41,13 @@ from typing import NamedTuple
 
 import numpy as np
 
+from .. import env_int
 from ..core.engine import graphs
 from ..core.engine.sweep import BatchedSweep, SweepResult
 from ..core.simulator import SimConfig, SimResult
 from ..core.topology import Network, final_faults
 from ..core.traffic import TrafficPattern
-from ..device import resolve_device
+from ..device import host_devices, physical_device, resolve_device
 from .spec import (ExperimentSpec, FaultSpec, RoutingSpec, SweepAxes,
                    TopologySpec, TrafficSpec)
 
@@ -51,6 +59,15 @@ _SWEEP_CACHE: dict = {}
 # Sampled fault sets, keyed by (topology, fault spec, vc_mode, lane seed):
 # host data, shared by every device and every cell with that vc_mode.
 _FAULT_CACHE: dict = {}
+
+
+def rr_max_channels() -> int:
+    """`REPRO_RR_MAX_CHANNELS` (default 1,024): a cell whose network has
+    more channels than this is not round-robined onto a device of its
+    own; it stays unpinned, so paper-scale cells do not run side by side
+    (the reference measured overlapped paper-scale cells slower than
+    serial ones)."""
+    return env_int("REPRO_RR_MAX_CHANNELS", 1024)
 
 
 def clear_caches() -> None:
@@ -101,14 +118,16 @@ class GridResult:
                                 # 1, the step it ran through)
     wall_s: float = 0.0         # run wall (captures excluded)
     compile_s: float = 0.0      # warm-up + capture seconds (0.0 on reuse)
-    placement: str = "single"   # always "single": one device
-    pad_fraction: float = 0.0   # always 0.0: no ghost lanes
+    placement: str = "single"   # the grid's dispatch (sweep.LaneRun)
+    pad_fraction: float = 0.0   # ghost share of its dispatched state
     grant_form: str = "two_pass"   # the reference's form (fused.grant_form)
     occupancy_peak: int = 0     # max live request rows over the grid
     compact_capacity: int = 0   # compact ladder rung (0 = dense step)
     superstep: int = 1          # K, the cycles a superstep advances
     escalations: int = 0        # capacity-ladder reruns (compact step)
     escalation_compiles: int = 0   # captures spent on abandoned rungs
+    device: str | None = None   # the device the cell was pinned to (None:
+                                # placed by its sweep)
 
     def result(self, fault_idx: int, rate_idx: int,
                seed_idx: int = 0) -> SimResult:
@@ -229,27 +248,40 @@ def cell_sweep(cell: Cell, axes: SweepAxes, device=None) -> BatchedSweep:
 
 def run_experiment(spec: ExperimentSpec, verbose: bool = False,
                    device=None) -> ExperimentResult:
-    """Run every grid of `spec` on `device`; each grid is one batched
-    dispatch (at most one capture a grid, none on reuse)."""
+    """Run every grid of `spec` on `device` and, with several devices, on
+    its `host_devices` (see the module docstring); each grid is one
+    batched dispatch (at most one capture a grid and card, none on
+    reuse)."""
     dev = resolve_device(device)
     result = ExperimentResult(spec, device=str(dev))
     all_cells = list(cells(spec))
+    devs = host_devices(dev)
+    # round-robin cells onto devices only when there are enough cells to
+    # occupy them; with fewer cells than devices each grid spreads its
+    # lanes over all of them instead
+    rr = len(devs) > 1 and len(all_cells) >= len(devs)
+    pins = [devs[i % len(devs)]
+            if rr and c.net.num_channels <= rr_max_channels() else None
+            for i, c in enumerate(all_cells)]
+    cards = len({physical_device(d) for d in devs})
     for lo in range(0, len(all_cells), graphs.GRAPHS_KEPT):
-        _run_chunk(spec, all_cells[lo:lo + graphs.GRAPHS_KEPT], dev,
+        hi = lo + graphs.GRAPHS_KEPT
+        _run_chunk(spec, all_cells[lo:hi], pins[lo:hi], dev, cards > 1,
                    result, verbose)
     return result
 
 
-def _run_chunk(spec, chunk, dev, result, verbose) -> None:
-    """Both passes over at most `graphs.GRAPHS_KEPT` cells, their grids
-    appended to `result`."""
+def _run_chunk(spec, chunk, pins, dev, overlap, result, verbose) -> None:
+    """Both passes over at most `graphs.GRAPHS_KEPT` cells (`pins` their
+    devices), their grids appended to `result`; `overlap` issues every
+    cell before reading any."""
     axes = spec.axes
     rates, seeds = list(axes.rates), list(axes.seeds)
     R, S, F = len(rates), len(seeds), len(axes.faults)
-    # pass 1: lower each cell's grid and capture its graph, before any
-    # cell of the chunk runs, so each cell's wall_s is its run alone
+    # pass 1: lower each cell's grid and capture its graphs, before any
+    # cell of the chunk runs, so no cell's wall_s holds a capture
     plans = []
-    for cell in chunk:
+    for cell, pin in zip(chunk, pins):
         sweep = cell_sweep(cell, axes, dev)
         frows = _fault_rows(spec, cell.topology, cell.net,
                             cell.routing.vc_mode)
@@ -257,16 +289,27 @@ def _run_chunk(spec, chunk, dev, result, verbose) -> None:
                  for fi in range(F)
                  for r in rates
                  for si, s in enumerate(seeds)]
-        plans.append((cell, sweep, sweep.warm_compile(lanes)))
-    # pass 2: run each cell and materialise it
-    for cell, sweep, plan in plans:
+        plans.append((cell, sweep, pin,
+                      sweep.warm_compile(lanes, device=pin)))
+
+    def issue(cell, sweep, pin, plan):
         if verbose:
+            where = pin if pin is not None else plan.placement
             print(f"[exp:{spec.name}] {cell.topology.label} "
                   f"{cell.routing.label} {cell.traffic.label}: "
-                  f"{len(plan.lanes)} lanes on {dev} "
+                  f"{len(plan.lanes)} lanes on {where} "
                   f"(compiles={plan.compile_count}) ...",
                   file=sys.stderr, flush=True)
-        run = sweep.run_lanes_async(plan=plan).finish()
+        return sweep.run_lanes_async(plan=plan)
+
+    # pass 2: run and materialise, every cell issued first on several
+    # cards, each cell in turn on one
+    if overlap:
+        pending = [(p[0], p[2], issue(*p)) for p in plans]
+        runs = [(cell, pin, pend.finish()) for cell, pin, pend in pending]
+    else:
+        runs = ((p[0], p[2], issue(*p).finish()) for p in plans)
+    for cell, pin, run in runs:
         flat, fsets = run.results, run.fault_sets
         results = [[[flat[(fi * R + ri) * S + si] for si in range(S)]
                     for ri in range(R)] for fi in range(F)]
@@ -286,7 +329,8 @@ def _run_chunk(spec, chunk, dev, result, verbose) -> None:
             occupancy_peak=run.occupancy_peak,
             compact_capacity=run.compact_capacity,
             superstep=run.superstep, escalations=run.escalations,
-            escalation_compiles=run.escalation_compiles))
+            escalation_compiles=run.escalation_compiles,
+            device=None if pin is None else str(pin)))
         if verbose:
             print(f"[exp:{spec.name}]   {cell.topology.label} "
                   f"{cell.routing.label} {cell.traffic.label} done in "

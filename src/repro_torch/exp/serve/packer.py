@@ -43,15 +43,18 @@ class Pack:
     @classmethod
     def open(cls, sid: int, bucket: BucketKey, units: list, *,
              window: int, pack: int, restore: dict | None = None,
-             device=None) -> "Pack":
-        """Open the pack's session on `device` (the bucket's sweep on that
-        device)."""
+             device=None, pin=None) -> "Pack":
+        """Open the pack's session through the bucket's sweep on `device`
+        (the service's), pinned to `pin` (`service.pack_device`) or, with
+        None, where the sweep places it.  Placement never changes a
+        lane's counters."""
         sweep = bucket_sweep(bucket, device)
         session = sweep.start_lanes(
-            [u.triple() for u in units], window=window,
+            [u.triple() for u in units], window=window, device=pin,
             pad_to=max(pack, len(units)), force_stack=True,
             epochs=bucket.epochs or None, restore=restore)
-        return cls(sid, bucket, units, session, sweep, sweep.device)
+        return cls(sid, bucket, units, session, sweep,
+                   sweep.device if pin is None else pin)
 
     @property
     def done(self) -> bool:

@@ -21,8 +21,11 @@ they fit `graphs.GRAPHS_KEPT`; more live buckets evict and recapture).
 The JSONL after its meta line is byte for byte the reference service's
 for the same submissions, window and pack.
 
-The service runs on one device (`device=None`: CUDA, or raise; tests pass
-``device="cpu"``).
+The service runs on its device (`device=None`: CUDA, or raise; tests
+pass ``device="cpu"``) and, when `host_devices(device)` holds N > 1
+devices, pins pack `sid` to device ``(sid - 1) % N`` (`pack_device`), so
+concurrent packs of different buckets run on different devices; the
+JSONL is byte for byte what one device writes.
 
 Checkpoint/resume: `checkpoint()` writes every active session's
 exported state into ONE atomic snapshot (`repro_torch.checkpoint`, npz +
@@ -44,7 +47,7 @@ from dataclasses import dataclass, field
 
 from ... import env_int
 from ...checkpoint import Checkpointer, save_sim_state
-from ...device import resolve_device
+from ...device import host_devices, resolve_device
 from ..provenance import provenance, spec_hash
 from ..spec import ExperimentSpec
 from .. import windows as W
@@ -68,12 +71,19 @@ def serve_pack() -> int:
     return max(1, env_int("REPRO_SERVE_PACK", 8))
 
 
-def pack_device(sid: int):
-    """Placement for pack `sid`: None, as the reference's on a
-    single-device host — every pack runs on the service's device.  The
-    reference's round-robin of packs over several devices is not
-    ported."""
-    return None
+def pack_device(sid: int, device=None):
+    """Deterministic round-robin placement for pack `sid`: with N > 1
+    devices in `host_devices(device)` (several cards, or
+    REPRO_HOST_DEVICES=N) pack sid pins its whole session to device
+    ``(sid - 1) % N``, so concurrent packs of different buckets run on
+    DIFFERENT devices.  The choice is a pure function of the sid, and sids
+    are checkpointed, so a resumed pack lands back on its device.  None
+    with one device (the pack runs where its sweep does).  Placement
+    never changes a lane's counters."""
+    devs = host_devices(device)
+    if len(devs) <= 1:
+        return None
+    return devs[(sid - 1) % len(devs)]
 
 
 @dataclass
@@ -198,7 +208,8 @@ class SimService:
             sid = self._next_sid
             self._next_sid += 1
             pk = Pack.open(sid, bucket, units, window=self.window,
-                           pack=self.pack, device=self.device)
+                           pack=self.pack, device=self.device,
+                           pin=pack_device(sid, self.device))
             self.compile_s += pk.session.compile_s
             self._active[sid] = pk
             self._log(f"pack {sid}: {len(units)} lanes "
@@ -311,7 +322,8 @@ class SimService:
             units = [unit_index[tuple(k)] for k in row["units"]]
             fresh[row["sid"]] = Pack.open(
                 row["sid"], units[0].bucket, units,
-                window=svc.window, pack=svc.pack, device=svc.device)
+                window=svc.window, pack=svc.pack, device=svc.device,
+                pin=pack_device(row["sid"], svc.device))
             svc.compile_s += fresh[row["sid"]].session.compile_s
         if fresh:
             template = {f"s{sid}": pk.export()
@@ -322,7 +334,8 @@ class SimService:
                 snap["cycle"] = int(snap["cycle"])
                 svc._active[sid] = Pack.open(
                     sid, pk.bucket, pk.units, window=svc.window,
-                    pack=svc.pack, restore=snap, device=svc.device)
+                    pack=svc.pack, restore=snap, device=svc.device,
+                    pin=pack_device(sid, svc.device))
         svc._log(f"resumed @ round {svc._round}: "
                  f"{len(svc._active)} sessions, "
                  f"{svc._sched.pending} pending lanes")

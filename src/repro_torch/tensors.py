@@ -84,3 +84,12 @@ def lane_take(tbl: torch.Tensor, *idx):
     if tbl.stride(0) == 0:
         return take(tbl[0], *idx)
     return take_flat(tbl, len(idx) + 1, lane_index(tbl, idx))
+
+
+def to_device(v: torch.Tensor, device) -> torch.Tensor:
+    """`v` on `device` (itself when it is there already); a tensor shared
+    over its leading dim (a stride-0 view, `routing.share_lanes`) moves
+    one row and stays a stride-0 view."""
+    if v.dim() > 0 and v.shape[0] > 1 and v.stride(0) == 0:
+        return v[:1].to(device).expand(v.shape)
+    return v.to(device)

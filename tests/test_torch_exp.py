@@ -225,6 +225,64 @@ def test_rows_equal_the_reference(name):
                for r in got)
 
 
+def _two_cell(mod):
+    """A two-cell spec of `mod`'s package (the smoke cell on its 80-channel
+    net and on smoke_fused's 264-channel one)."""
+    smoke = mod.get_scenario("smoke")
+    topo = mod.get_scenario("smoke_fused").topologies[0]
+    return dataclasses.replace(smoke, name="smoke_two_cells",
+                               topologies=(smoke.topologies[0], topo))
+
+
+_TWO_CELL_ROWS = []
+
+
+def _two_cell_reference():
+    """The reference's rows of the two-cell spec (run once)."""
+    if not _TWO_CELL_ROWS:
+        _fresh_reference()
+        _TWO_CELL_ROWS.append(RX.run_experiment(_two_cell(RR)).rows())
+    return _TWO_CELL_ROWS[0]
+
+
+def test_round_robin_places_cells_as_the_reference(monkeypatch):
+    """On 2 logical devices the two cells round-robin (cell i on device
+    i % 2) and run pinned, "single"; a cell above REPRO_RR_MAX_CHANNELS
+    stays unpinned; the rows are the reference's either way."""
+    ref_spec = _two_cell(RR)
+    ref = _two_cell_reference()
+    strip = lambda rows: [{k: v for k, v in r.items() if k not in TIMINGS}
+                          for r in rows]
+    monkeypatch.setenv("REPRO_HOST_DEVICES", "2")
+    for rr_max, want in ((None, ["cpu:0", "cpu:1"]), (100, ["cpu:0", None])):
+        if rr_max is not None:
+            monkeypatch.setenv("REPRO_RR_MAX_CHANNELS", str(rr_max))
+        PX.clear_caches()
+        got = PX.run_experiment(_port(ref_spec), device="cpu")
+        assert [g.device for g in got.grids] == want
+        assert [g.placement for g in got.grids] == ["single", "single"]
+        assert strip(got.rows()) == strip(ref)
+
+
+def test_fewer_cells_than_devices_spread_their_lanes(monkeypatch):
+    """Two cells on 4 devices: no round-robin, each grid spreads its lanes
+    over the 4 devices (2 lanes + 2 ghosts); the counters are the
+    reference's."""
+    ref_spec = _two_cell(RR)
+    ref = _two_cell_reference()
+    monkeypatch.setenv("REPRO_HOST_DEVICES", "4")
+    monkeypatch.setenv("REPRO_SHARD_MIN_WORK", "0")
+    PX.clear_caches()
+    got = PX.run_experiment(_port(ref_spec), device="cpu")
+    assert [g.device for g in got.grids] == [None, None]
+    assert [g.placement for g in got.grids] == ["lanes:4", "lanes:4"]
+    assert all(g.pad_fraction == 0.5 for g in got.grids)
+    moved = TIMINGS + ("placement", "pad_fraction")
+    strip = lambda rows: [{k: v for k, v in r.items() if k not in moved}
+                          for r in rows]
+    assert strip(got.rows()) == strip(ref)
+
+
 def test_sweep_cache_is_keyed_by_device():
     PX.clear_caches()
     PX.run_experiment(PX.get_scenario("smoke"), device="cpu")

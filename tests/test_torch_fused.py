@@ -176,14 +176,22 @@ def test_fused_step_runs_the_arbitration_core_on_cpu(nets):
     fl = share_lanes(build_lane(pnet, cfg, None, device="cpu"), 1)
     state = make_state(pnet, cfg, consts["NV"], batch=(1,), device="cpu")
     assert state.b_pkt.shape[-1] == 8
+    # the channel-sharded step builds and runs its plain grant too (the
+    # global minimum exists only after the shards' exchange)
+    from repro_torch.core.engine.fused import make_fused_step
+    sstep, _ = make_fused_step(pnet, cfg, PTR.uniform(pnet), shards=2,
+                               device="cpu")
+    states = sstep.make_states((1,))
+    rate = torch.tensor([0.5])
     for t in range(5):
-        state, _ = step(state, (t, jr.PRNGKey(t)[None],
-                                torch.tensor([0.5]), fl))
+        key = jr.PRNGKey(t)[None]
+        state, _ = step(state, (t, key, rate, fl))
+        states, _ = sstep(states, (t, sstep.place(key), sstep.place(rate),
+                                   sstep.place(fl)))
     assert netsim_ops.cycle_core.launches == before
-    with pytest.raises(NotImplementedError, match="sharding"):
-        from repro_torch.core.engine.fused import make_fused_step
-        make_fused_step(pnet, cfg, PTR.uniform(pnet), shards=2,
-                        device="cpu")
+    got = sstep.gather(states)
+    assert torch.equal(got.b_pkt, state.b_pkt)
+    assert torch.equal(got.s_count, state.s_count)
 
 
 @pytest.mark.parametrize("net_name,cycles,want", [

@@ -192,6 +192,42 @@ def test_pack_device_single_device_is_none():
     assert service_mod.pack_device(7) is None
 
 
+def _two_bucket_jsonl():
+    out = io.StringIO()
+    svc = SimService(out=out, window=100, pack=PACK, device=CPU)
+    svc.submit(get_scenario("smoke"), tenant="alice")
+    svc.submit(get_scenario("smoke_faults"), tenant="bob")
+    svc.run()
+    assert svc.idle
+    return out.getvalue().splitlines()
+
+
+def test_two_buckets_land_on_two_devices(monkeypatch):
+    """Under REPRO_HOST_DEVICES=2 two concurrently active buckets are
+    pinned to two DISTINCT devices (sid round-robin), `pack_device` wraps
+    around, and the JSONL is the one-device run's."""
+    from repro_torch.exp.serve.packer import Pack
+    one = _two_bucket_jsonl()
+    monkeypatch.setenv("REPRO_HOST_DEVICES", "2")
+    opened, orig = [], Pack.open.__func__
+
+    def record(cls, sid, bucket, units, **kw):
+        pk = orig(cls, sid, bucket, units, **kw)
+        opened.append((sid, str(pk.device), pk.session.placement))
+        return pk
+
+    monkeypatch.setattr(Pack, "open", classmethod(record))
+    two = _two_bucket_jsonl()
+    assert len(opened) >= 2
+    assert {d for _, d, _ in opened} == {"cpu:0", "cpu:1"}, opened
+    assert all(pl == "single" for _, _, pl in opened)
+    pd = [service_mod.pack_device(s, CPU) for s in (1, 2, 3)]
+    assert pd[0] != pd[1] and pd[2] == pd[0]
+    assert all(dict((s, d) for s, d, _ in opened)[s] == str(pd[(s - 1) % 2])
+               for s, _, _ in opened)
+    assert len(two) == len(one) > 1 and two[1:] == one[1:]
+
+
 # ---------------------------------------------------------------------------
 # the port's service against the reference's service
 # ---------------------------------------------------------------------------
@@ -351,9 +387,10 @@ def test_ghost_lanes_are_dropped(smoke_net):
     sw = _sweep(smoke_net)
     one = sw.run_lanes(LANES)
     ses = sw.start_lanes(LANES, window=100, pad_to=5)
-    assert ses.num_lanes == 2 and ses.state.b_count.shape[0] == 5
-    assert ses._lane_data["ch_alive"].shape[0] == 5
-    assert ses._lane_data["ch_alive"].stride(0) == 0    # still shared
+    (chunk,) = ses.chunks                               # one device
+    assert ses.num_lanes == 2 and chunk.state.b_count.shape[0] == 5
+    assert chunk.lanes["ch_alive"].shape[0] == 5
+    assert chunk.lanes["ch_alive"].stride(0) == 0       # still shared
     assert ses.pad_fraction == pytest.approx(0.6)
     got = _drain(ses)
     assert len(got.results) == 2
@@ -371,13 +408,14 @@ def test_force_stack_and_epochs(smoke_net):
     shared = sw.start_lanes(LANES, window=100)
     stacked = sw.start_lanes(LANES, window=100, force_stack=True)
     warm = sw.start_lanes(LANES, window=100, force_stack=True, epochs=3)
-    fl = lambda s: s._lane_data["ch_alive"]
+    lanes = lambda s: s.chunks[0].lanes                 # one device
+    fl = lambda s: lanes(s)["ch_alive"]
     assert fl(shared).stride(0) == 0 and fl(stacked).stride(0) != 0
-    assert "epoch_start" not in stacked._lane_data
-    assert tuple(warm._lane_data["epoch_start"].shape) == (2, 3)
+    assert "epoch_start" not in lanes(stacked)
+    assert tuple(lanes(warm)["epoch_start"].shape) == (2, 3)
     padded = sw.start_lanes(LANES, window=100, pad_to=3, force_stack=True,
                             epochs=3)
-    assert tuple(padded._lane_data["epoch_start"].shape) == (3, 3)
+    assert tuple(lanes(padded)["epoch_start"].shape) == (3, 3)
     for ses in (shared, stacked, warm, padded):
         assert _asdicts(_drain(ses).results) == _asdicts(one.results)
 

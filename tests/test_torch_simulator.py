@@ -143,11 +143,31 @@ def test_config_validation_and_unported_steps():
         SimConfig(grant_impl="magic")
     with pytest.raises(ValueError, match="step_impl"):
         SimConfig(step_impl="warp")
-    # the fused step's channel sharding is the part still unported
+    # the fused step's channel sharding builds, and its first cycles are
+    # the unsharded step's, every state leaf
     from repro_torch.core.engine.fused import make_fused_step
-    with pytest.raises(NotImplementedError, match="channel sharding"):
-        make_fused_step(pn, SimConfig(step_impl="fused"), PTR.uniform(pn),
-                        shards=2, device="cpu")
+    from repro_torch.core.engine.state import build_lane, make_state
+    from repro_torch.core.routing import share_lanes
+    cfg = SimConfig(step_impl="fused")
+    step, consts = make_fused_step(pn, cfg, PTR.uniform(pn), device="cpu")
+    sstep, _ = make_fused_step(pn, cfg, PTR.uniform(pn), shards=2,
+                               device="cpu")
+    state = make_state(pn, cfg, consts["NV"], batch=(2,), device="cpu")
+    states = sstep.make_states((2,))
+    fl = share_lanes(build_lane(pn, cfg, None, device="cpu"), 2)
+    rate = torch.tensor([0.6, 1.0])
+    for t in range(12):
+        key = torch.stack([jr.PRNGKey(t), jr.PRNGKey(t + 100)])
+        state, _ = step(state, (t, key, rate, fl))
+        states, _ = sstep(states, (t, sstep.place(key), sstep.place(rate),
+                                   sstep.place(fl)))
+    got = sstep.gather(states)
+    for k in ("b_pkt", "b_head", "b_count", "s_pkt", "s_head", "s_count",
+              "ch_busy"):
+        assert torch.equal(getattr(got, k), getattr(state, k)), k
+    for k, v in vars(state.stats).items():
+        assert torch.equal(getattr(got.stats, k), v), k
+    assert int(state.stats.delivered.sum()) > 0
     # both reference grant names run the one arbitration of the port, in
     # every step, and all steps agree
     res = [Simulator(pn, SimConfig(warmup=5, measure=30, grant_impl=g,

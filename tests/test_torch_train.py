@@ -396,8 +396,12 @@ def test_train_main_runs_on_cpu_and_needs_cuda_by_default(tmp_path, capsys):
     assert all(np.isfinite(h["loss"]) and h["aux"] > 0 for h in tr.history)
     assert tr.ckpt.latest_step() == 2
     assert "done at step 3" in capsys.readouterr().out
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 7"):
+    # with no process group the production meshes raise, naming the
+    # group they need, before a weight is built
+    with pytest.raises(ValueError, match="256-rank process group"):
         launch_train.main(argv + ["--production-mesh"], device="cpu")
+    with pytest.raises(ValueError, match="512-rank process group"):
+        launch_train.main(argv + ["--multi-pod"], device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             launch_train.main(argv)
@@ -575,6 +579,38 @@ def test_sharded_step_on_one_rank_equals_the_plain_step(tmp_path):
     assert gap == 0.0
     assert same
     assert back == 0.0
+
+
+def test_train_main_on_a_host_mesh_equals_one_device(tmp_path,
+                                                    monkeypatch):
+    """`launch.train.main` on 2 gloo ranks trains on `make_host_mesh(model
+    =1)` and equals its one-device run at the phase-15 bar, both with the
+    smoke config in fp32 (metrics 1e-5 relative; parameters 1e-5, or
+    within Adam's largest move for at most 1e-3 of the elements);
+    `--production-mesh` on that group raises, naming the 256 ranks it
+    needs."""
+    lr = 1e-3
+    argv = ["--arch", "minicpm-2b", "--smoke", "--steps", "3", "--batch",
+            "4", "--seq", "32", "--lr", str(lr), "--ckpt-every", "0",
+            "--ckpt-dir", str(tmp_path / "ckpt")]
+    res = jobs.run_ranks(jobs.launcher, 2, tmp_path / "store", (argv,),
+                         timeout=240)
+    hist, full, placed, err = res[0]
+    assert placed > 0
+    assert "256-rank process group" in err and "2 ranks" in err
+    assert res[1] == err
+    monkeypatch.setattr(launch_train, "get_config",
+                        jobs.fp32_configs(launch_train.get_config))
+    tr = launch_train.main(argv, device="cpu")
+    assert len(hist) == len(tr.history) == 3
+    for hm, pm in zip(hist, tr.history):
+        for k in pm:
+            assert _rel(hm[k], pm[k]) < 1e-5, k
+    plain = {n: p.detach().numpy() for n, p in tr.model.named_parameters()}
+    worst, off, total = _param_gaps(full, plain.__getitem__, 3 * lr)
+    print(f"\nlauncher on a (2, 1) host mesh vs one device: largest "
+          f"parameter gap {worst:.3e}, {off} of {total} elements above "
+          f"1e-5")
 
 
 def test_jit_train_step_places_on_first_call_and_keeps_specs():

@@ -197,3 +197,32 @@ def moe_sharded_against_reference(rank, world, tcfg, opt, named):
         return None
     hist, full, _, _ = res
     return first, grads, hist, full
+
+
+def fp32_configs(get_config):
+    """`get_config` with every model in fp32 (the launcher has no dtype
+    flag; the tests' bar is the fp32 one)."""
+    import dataclasses
+    return lambda name: dataclasses.replace(get_config(name),
+                                            dtype="float32")
+
+
+def launcher(rank, world, argv):
+    """`launch.train.main(argv)` on the gloo group (a host mesh over its
+    ranks), its configs in fp32 (`fp32_configs`), then the same command
+    line with `--production-mesh`, which must raise before building a
+    weight; rank 0 returns the history, the full parameters, how many
+    are DTensors and the error, the others the error."""
+    from repro_torch.launch import train as LT
+    LT.get_config = fp32_configs(LT.get_config)
+    tr = LT.main(argv, device="cpu")
+    full = {n: TT.full(p).detach().numpy()
+            for n, p in tr.model.named_parameters()}
+    placed = sum(type(p).__name__ == "DTensor"
+                 for p in tr.model.parameters())
+    try:
+        LT.main(argv + ["--production-mesh"], device="cpu")
+        err = None
+    except ValueError as e:
+        err = str(e)
+    return (tr.history, full, placed, err) if rank == 0 else err
