@@ -210,10 +210,23 @@ Phases (any failure ends the run with a nonzero exit):
    (d) in an NCCL group of one rank, `launch.train.main` on minicpm-2b at
    full width, 3 steps, trains on `make_host_mesh(model=1)` and equals the
    plain launcher's run at the phase-15 bar; `--production-mesh` on that
-   group raises, naming the 256 ranks it needs.
+   group raises, naming the 256 ranks it needs;
+20. the closing slice, timed: (a) `run_scan_batched` on the fused step of
+   the smoke_fused scenario's net (2 lanes, 100 + 200 cycles): every
+   field of the final state equal to the CPU's, one `cycle_core` launch
+   a cycle (+ the capture's warm-up) counted on the card; (b) a
+   minicpm-2b smoke trainer's state saved, then restored by
+   `Checkpointer.restore(..., shardings=)` with the trainer's specs onto
+   a one-rank NCCL mesh: every leaf a DTensor on cuda:0, bit for bit the
+   saved one; (c) the example drivers: `examples/torch_quickstart.py`
+   with rows equal to the CPU's and its sweep on the grant kernel,
+   `examples/torch_serve_lm.py`'s command line and its fp32 greedy
+   tokens equal to the CPU's on the same weights, and
+   `examples/torch_train_lm.py` for 40 steps with a failure at 25 and a
+   snapshot every 20, nll falling.
 
 Then one JSON line of kernel numbers (the netsim entries with the launches
-of every path, phases 4, 12-14 and 19, in `by_path`; the flash entry's
+of every path, phases 4, 12-14, 19 and 20, in `by_path`; the flash entry's
 launches and timings by served model), the card's name and power limit, and the final
 status line.  Exits nonzero, printing no result, without a CUDA
 device or without the repository's sources.
@@ -3399,6 +3412,195 @@ def phase_launcher_mesh(device):
                 mesh_ms=mesh_ms)
 
 
+# phase 20: the closing slice.  (a) the public batched scan on the fused
+# step of the smoke_fused scenario's net, 2 lanes; (b) a smoke trainer's
+# snapshot restored onto phase 18's one-rank NCCL mesh; (c) the three
+# example drivers, the train driver with a failure after its first
+# snapshot
+CLOSING_SCAN = dict(warmup=100, measure=200)
+CLOSING_RATES = (0.25, 0.75)
+CLOSING_TRAIN = ("--steps", "40", "--inject-failure-at", "25",
+                 "--ckpt-every", "20")
+CLOSING_SERVE = ("--batch", "4", "--prompt-len", "32", "--gen", "16")
+
+
+def _bits(t):
+    """The bytes of a tensor, for bit-for-bit comparisons."""
+    import torch
+    return t.detach().contiguous().reshape(-1).view(torch.uint8)
+
+
+def phase_closing_scan(device):
+    """20(a): `run_scan_batched` on the card against the CPU: every field
+    of the final state equal, one `cycle_core` launch a cycle (+ the
+    capture's one-cycle warm-up) counted on the card.  Returns the
+    device launches."""
+    import torch
+    from repro_torch import random as jr
+    from repro_torch.core.engine import (build_lane, graphs, make_state,
+                                         make_step, run_scan_batched)
+    from repro_torch.exp import get_scenario, runner
+    cell = next(runner.cells(get_scenario("smoke_fused")))
+    cfg = dataclasses.replace(cell.cfg, **CLOSING_SCAN)
+    cycles = cfg.warmup + cfg.measure
+
+    def scan_on(dev):
+        step, consts = make_step(cell.net, cfg, cell.pattern, device=dev)
+        state0 = make_state(cell.net, cfg, consts["NV"],
+                            (len(CLOSING_RATES),), device=dev)
+        keys = torch.stack([jr.PRNGKey(s) for s in
+                            range(len(CLOSING_RATES))]).to(dev)
+        args = (step, cycles, cfg.warmup, state0,
+                torch.tensor(CLOSING_RATES, device=dev), keys,
+                build_lane(cell.net, cfg, device=dev), False)
+        return lambda: run_scan_batched(*args)
+
+    want = graphs._leaves(scan_on("cpu")())
+    state, wall, launches, _ = counted(scan_on(device))
+    got = {k: v.cpu() for k, v in graphs._leaves(state).items()}
+    diff = [k for k, v in want.items() if not torch.equal(got[k], v)]
+    check(not diff, f"closing (a): run_scan_batched card != CPU in {diff}")
+    check(int(want["stats.hops"].sum()) > 0,
+          "closing (a): no packet moved")
+    calls = cycles + 1
+    check(launches["cycle_core"]["coop"] == calls
+          and not any(launches["grant"].values())
+          and launches["cycle_core"]["three_pass"] == 0,
+          f"closing (a): cycle_core launches on the card {launches} != "
+          f"{calls} (a cycle + the capture's warm-up)")
+    print(f"[closing] (a) run_scan_batched, fused step, smoke_fused net "
+          f"({cell.net.num_channels} channels), {len(CLOSING_RATES)} lanes x "
+          f"{cycles} cycles: {len(want)} state fields card == CPU; "
+          f"cycle_core on the card {launches['cycle_core']} ({calls} = a "
+          f"cycle + the warm-up); {wall:.3f} s with the capture")
+    return launches
+
+
+def phase_closing_restore(device):
+    """20(b): a minicpm-2b smoke trainer's state after 2 steps, saved, then
+    restored with the trainer's own specs as `shardings` onto the
+    one-rank NCCL mesh of phase 18: every parameter and AdamW leaf a
+    DTensor on cuda:0, its bytes the saved tensor's."""
+    import torch
+    from torch.distributed.tensor import DTensor
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.pipeline import SyntheticTokens
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.optim.optimizer import OptConfig
+    from repro_torch.runtime import sharding as SH
+    from repro_torch.runtime.trainer import Trainer, TrainSetup, train_specs
+    t0 = time.perf_counter()
+    cfg = get_config("minicpm-2b-smoke")
+    tr = Trainer(TrainSetup(model=cfg, opt=OptConfig(
+        lr=1e-3, warmup_steps=1, total_steps=2, schedule=cfg.schedule),
+        attn_impl="naive", remat=False),
+        SyntheticTokens(cfg.vocab_size, 4, 32), device=device)
+    tr.run(2)
+    saved = tr.state()
+    ckpt_dir = ROOT / "build" / "closing" / "ckpt"
+    ckpt = Checkpointer(str(ckpt_dir), keep=1)
+    ckpt.save(tr.step, saved)
+    with nccl_rank("closing"):
+        mesh = make_host_mesh(model=1, device_type=torch.device(device).type)
+        pspecs, ospecs, _ = train_specs(tr.model, mesh)
+        shardings = {"params": SH.shardings(pspecs, mesh),
+                     "opt": SH.shardings(ospecs, mesh), "data": None}
+        back, step = ckpt.restore(tr.state(), shardings=shardings)
+        n, bad = 0, []
+        for part in ("params", "opt"):
+            flat = SH._tree_leaves(saved[part])
+            got = dict(SH._tree_leaves(back[part]))
+            for path, want in flat:
+                t = got[path]
+                n += 1
+                if not (isinstance(t, DTensor)
+                        and t.to_local().device == torch.device("cuda", 0)
+                        and t.dtype == want.dtype
+                        and torch.equal(_bits(t.to_local()), _bits(want))):
+                    bad.append((part, path))
+    check(step == tr.step and not bad
+          and int(back["data"]["step"]) == int(saved["data"]["step"]),
+          f"closing (b): restore onto the NCCL mesh: step {step}, leaves "
+          f"not equal DTensors on cuda:0: {bad[:4]}")
+    dtypes = sorted({str(t.dtype) for _, t in SH._tree_leaves(saved["opt"])}
+                    | {str(t.dtype) for _, t in
+                       SH._tree_leaves(saved["params"])})
+    print(f"[closing] (b) {cfg.name} trainer state after {step} steps "
+          f"({n} tensors, {', '.join(dtypes)}) restored onto a one-rank "
+          f"NCCL mesh by shardings: every leaf a DTensor on cuda:0, bit "
+          f"for bit the saved one; {time.perf_counter() - t0:.2f} s with "
+          f"the 2 steps")
+
+
+def phase_closing_examples(device):
+    """20(c): the three example drivers on the card: the quickstart's rows
+    equal the CPU's, its sweep on the grant kernel; the serve driver's
+    command line, then its greedy tokens on the same weights (fp32, drawn
+    on the CPU) card == CPU; the train driver with a failure after its
+    first snapshot, nll falling.  Returns each run's netsim launches."""
+    import copy
+    import torch
+    from examples import torch_quickstart, torch_serve_lm, torch_train_lm
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import transformer as TF
+    rows, wall, quick, _ = counted(
+        lambda: torch_quickstart.main(["--device", device]))
+    t0 = time.perf_counter()
+    cpu_rows = torch_quickstart.main(["--device", "cpu"])
+    cpu_s = time.perf_counter() - t0
+    strip = lambda rr: [{k: v for k, v in r.items() if k != "wall_s"}
+                        for r in rr]
+    cycles = 300 + 900
+    check(strip(rows) == strip(cpu_rows),
+          "closing (c): torch_quickstart rows card != CPU")
+    check(quick["grant"]["coop"] == cycles + 1
+          and not any(quick["cycle_core"].values()),
+          f"closing (c): the quickstart's launches {quick} != {cycles + 1} "
+          f"grant (3 lanes x {cycles} cycles in lockstep + the warm-up)")
+    out, _, serve_n, _ = counted(lambda: torch_serve_lm.main(
+        list(CLOSING_SERVE) + ["--device", device]))
+    check(out.shape == (4, 16), f"closing (c): serve tokens {out.shape}")
+    cfg = dataclasses.replace(get_config("minicpm-2b-smoke"),
+                              dtype="float32")
+    cpu = TF.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    card = copy.deepcopy(cpu).to(device)
+    toks = [torch_serve_lm.serve(m, cfg, 4, 32, 16, d)[0].cpu()
+            for m, d in ((card, device), (cpu, "cpu"))]
+    check(torch.equal(toks[0], toks[1]),
+          "closing (c): torch_serve_lm greedy tokens card != CPU")
+    ckpt_dir = ROOT / "build" / "closing" / "train"
+    tr, train_s, train_n, _ = counted(lambda: torch_train_lm.main(
+        list(CLOSING_TRAIN) + ["--ckpt-dir", str(ckpt_dir), "--device",
+                               device]))
+    nll = [h["nll"] for h in tr.history]
+    first, last = sum(nll[:10]) / 10, sum(nll[-10:]) / 10
+    check(tr.step == 40 and last < first,
+          f"closing (c): torch_train_lm at step {tr.step}, nll {first} -> "
+          f"{last}")
+    print(f"[closing] (c) torch_quickstart rows card == CPU ({wall:.2f} s "
+          f"on the card, {cpu_s:.2f} s on the CPU), grant on the card "
+          f"{quick['grant']}; torch_serve_lm {' '.join(CLOSING_SERVE)} on "
+          f"the card, then fp32 greedy tokens card == CPU "
+          f"{toks[0][0, :8].tolist()}; torch_train_lm "
+          f"{' '.join(CLOSING_TRAIN)}: nll {first:.3f} -> {last:.3f} over "
+          f"{len(nll)} steps in {train_s:.2f} s")
+    return dict(quickstart=quick, serve=serve_n, train=train_n,
+                first_nll=first, last_nll=last)
+
+
+def phase_closing(device):
+    """Phase 20, timed: (a)-(c) above.  Returns the paths' launches."""
+    t0 = time.perf_counter()
+    scan = phase_closing_scan(device)
+    phase_closing_restore(device)
+    ex = phase_closing_examples(device)
+    took = time.perf_counter() - t0
+    print(f"[closing] phase 20: {took:.2f} s")
+    return dict(closing_scan=scan, closing_quickstart=ex["quickstart"],
+                closing_serve_lm=ex["serve"], closing_train_lm=ex["train"])
+
+
 def kernel_entry(name, source, replaces, launches, err, t):
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches, "max_abs_err": err,
@@ -3499,6 +3701,7 @@ def main(argv=None):
                      channels=phase_channel_sharding(device, net))
     placement.update(phase_placement_exp(device))
     placement["launcher"] = phase_launcher_mesh(device)
+    closing = phase_closing(device)
     # the netsim kernels: the coop kernel's numbers, the three-pass
     # kernel's time on the same inputs beside them
     grant_entry = kernel_entry(
@@ -3543,7 +3746,7 @@ def main(argv=None):
                  placement_lanes=placement["lanes"]["launches"],
                  placement_channels=placement["channels"]["launches"],
                  placement_exp=placement["exp"],
-                 placement_serve=placement["serve"])
+                 placement_serve=placement["serve"], **closing)
     for entry, wrapper in ((grant_entry, "grant"),
                            (cycle_entry, "cycle_core")):
         entry["by_path"] = {"main": dict(

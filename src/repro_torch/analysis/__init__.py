@@ -19,7 +19,7 @@ Six passes; only the step pass runs a cycle, one superstep a cell:
            Reference: `repro.analysis.capacitypass`, same rules.
   step     (`steppass`)    one superstep of every (step, VC mode,
            fault kind) cell as a graph replays it: carry stability (what
-           `graphs._copy_state` needs), no 64-bit fields, the operation
+           `graphs.copy_state` needs), no 64-bit fields, the operation
            count, and the batch-purity probe of the route kernels.
            Reference: the jaxpr pass `repro.analysis.jaxprpass`
            (JAXPR_CARRY -> STEP_CARRY, JAXPR_DTYPE -> STEP_DTYPE,
@@ -28,10 +28,10 @@ Six passes; only the step pass runs a cycle, one superstep a cell:
   serve    (`servepass`)   the service's one-capture-per-bucket promise
            and the graphs its sessions make.  Reference:
            `repro.analysis.servepass`, same rules.
-  lint     (`lint`)        AST rules REPRO001-003 with their torch
-           meanings (REPRO003: a host sync in a step body) and REPRO005
-           (no jax / reference imports).  Reference: `repro.analysis.lint`
-           (REPRO004 is not ported).
+  lint     (`lint`)        AST rules REPRO001-004 with their torch
+           meanings (REPRO003: a host sync in a step body; REPRO004 over
+           the port's example scripts) and REPRO005 (no jax / reference
+           imports).  Reference: `repro.analysis.lint`.
 
 CLI: `python -m repro_torch.analysis.check --all --lint --serve` (exits
 nonzero on any unsuppressed error or warning; `--device` defaults to

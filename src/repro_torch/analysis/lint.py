@@ -26,12 +26,13 @@ REPRO003  a host sync inside the step bodies — the torch meaning of the
           (`HOST_FUNCTIONS`: `stats.finalize`, `step._key_chain_seq`, the
           sweep's `_host*`, `finish` and `stats_host`).
           Scope: src/repro_torch/core/engine.
+REPRO004  `sys.path.insert` in an example script: they run as modules
+          from the repo root (`python -m examples.torch_quickstart`);
+          path hacks mask broken imports and break installed-package
+          runs.  Scope: the port's example scripts.
 REPRO005  an import of `jax`, `jaxlib` or `repro` (the reference): the
-          port and `chip_smoke.py` run where JAX is not installed.
-          Scope: every linted file.
-
-REPRO004 (`sys.path.insert` in benchmarks/examples) is not ported: the
-port has no `benchmarks/` or `examples/` of its own.
+          port, its example scripts and `chip_smoke.py` run where JAX is
+          not installed.  Scope: every linted file.
 
 All rules are pure AST — no imports of the linted code, so lint runs in
 milliseconds, touches no device and can't be confused by import-time
@@ -46,9 +47,11 @@ from .findings import Finding
 
 PASS = "lint"
 
-# directories and single files linted, relative to the repo root
+# directories and single files linted, relative to the repo root (the
+# reference's scripts beside the port's under examples/ are not the port's)
 LINT_TREES = ("src/repro_torch",)
-LINT_FILES = ("chip_smoke.py",)
+LINT_FILES = ("chip_smoke.py", "examples/torch_quickstart.py",
+              "examples/torch_serve_lm.py", "examples/torch_train_lm.py")
 
 PKG = "src/repro_torch/"
 ENV_MODULE = "src/repro_torch/__init__.py"
@@ -261,6 +264,25 @@ def _check_repro003(tree, rel, out):
             f"masks) or move the read to a host-side helper"))
 
 
+def _check_repro004(tree, rel, out):
+    if not rel.startswith("examples/"):
+        return
+    for node in ast.walk(tree):
+        if not isinstance(node, ast.Call):
+            continue
+        f = node.func
+        if (isinstance(f, ast.Attribute) and f.attr == "insert"
+                and isinstance(f.value, ast.Attribute)
+                and f.value.attr == "path"
+                and isinstance(f.value.value, ast.Name)
+                and f.value.value.id == "sys"):
+            out.append(Finding(
+                PASS, "REPRO004", "error", f"{rel}:{node.lineno}",
+                "sys.path.insert in an example script: run it as a "
+                "module from the repo root (python -m ...) instead of "
+                "patching the import path"))
+
+
 def _check_repro005(tree, rel, out):
     for node in ast.walk(tree):
         if isinstance(node, ast.Import):
@@ -273,12 +295,13 @@ def _check_repro005(tree, rel, out):
             if mod.split(".")[0] in _FORBIDDEN:
                 out.append(Finding(
                     PASS, "REPRO005", "error", f"{rel}:{node.lineno}",
-                    f"import of {mod}: the port and chip_smoke.py import "
-                    f"torch and numpy, never jax or the reference package"))
+                    f"import of {mod}: the port, its examples and "
+                    f"chip_smoke.py import torch and numpy, never jax or "
+                    f"the reference package"))
 
 
 _CHECKS = (_check_repro001, _check_repro002, _check_repro003,
-           _check_repro005)
+           _check_repro004, _check_repro005)
 
 
 def lint_file(path: Path, rel: str) -> list:

@@ -19,7 +19,7 @@ each.
   STEP_CARRY  the output state's fields (the stats' included) differ
               from the input's in name, shape or dtype.  A replay writes
               the step's output into the graph's static buffers with
-              `copy_` (`graphs._copy_state`), which broadcasts a changed
+              `copy_` (`graphs.copy_state`), which broadcasts a changed
               shape and casts a changed dtype without raising, so such a
               step corrupts every replay silently.
   STEP_DTYPE  a 64-bit dtype in a state or lane-dict field.  The engine

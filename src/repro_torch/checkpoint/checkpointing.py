@@ -1,14 +1,20 @@
-"""Checkpointing: atomic on-disk snapshots of a state tree (port of the
-snapshot part of `repro.checkpoint.checkpointing`; resharding onto a
-mesh is not ported).
+"""Checkpointing: atomic on-disk snapshots of a state tree, an async save
+thread, and restore with placement onto a mesh that may differ from the
+writer's (elastic restart).  Port of `repro.checkpoint.checkpointing`,
+in its on-disk format: a snapshot written by either package restores in
+the other.
 
 A state tree is nested dicts, lists/tuples and dataclasses (`SimState`)
 with numpy arrays, torch tensors or Python scalars at the leaves.  Format:
 one .npz per snapshot with flattened "path/to/leaf -> array" keys + a
 small JSON manifest; writes go to a temp dir then rename (atomic), and a
 retention policy keeps the newest K snapshots.  numpy has no bfloat16, so
-a bf16 tensor is saved as its 16-bit pattern (int16) and restored into a
-bf16 tensor, bit for bit.
+a bf16 tensor is saved as the reference's `np.savez` saves its bfloat16
+arrays: the 16-bit patterns as raw void bytes (``V2``).  Restore reads a
+void leaf through the template's dtype, bit for bit, and converts any
+other dtype mismatch, as the reference does; one exception keeps the
+port's older snapshots readable: an ``int16`` leaf restored into a bf16
+tensor is read as its bit pattern too.
 """
 from __future__ import annotations
 
@@ -35,21 +41,55 @@ def _children(tree) -> list | None:
     return None
 
 
+# a bf16 leaf on disk: its 16-bit patterns as raw bytes, the reference's
+# (ml_dtypes) format
+_BF16_DISK = np.dtype("V2")
+
+
 def _host(leaf) -> np.ndarray:
     if isinstance(leaf, torch.Tensor):
         t = leaf.detach().to("cpu", copy=True)
         if t.dtype == torch.bfloat16:
-            t = t.view(torch.int16)
+            return t.view(torch.int16).numpy().view(_BF16_DISK)
         return t.numpy()
     return np.asarray(leaf)
 
 
 def _host_dtype(leaf) -> np.dtype:
-    """The dtype `_host(leaf)` has, without fetching the leaf."""
+    """The numpy dtype a leaf restores to, without fetching it (int16, the
+    bit patterns, for a bf16 tensor)."""
     if isinstance(leaf, torch.Tensor):
         dtype = torch.int16 if leaf.dtype == torch.bfloat16 else leaf.dtype
         return torch.empty((), dtype=dtype).numpy().dtype
     return np.asarray(leaf).dtype
+
+
+def _read_leaf(arr: np.ndarray, leaf):
+    """A snapshot array in the template leaf's dtype: a numpy array (a
+    0-d one for a Python scalar), or a CPU tensor for a bf16 tensor.  A
+    void array of the template's item size is read bit for bit, as is an
+    int16 one into a bf16 tensor (the port's older snapshots); any other
+    mismatch is converted."""
+    dtype = _host_dtype(leaf)
+    bits = arr.dtype.kind == "V" and arr.dtype.itemsize == dtype.itemsize
+    if isinstance(leaf, torch.Tensor) and leaf.dtype == torch.bfloat16:
+        if bits or arr.dtype == np.int16:
+            return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
+        return torch.from_numpy(arr).to(torch.bfloat16)
+    if arr.dtype == dtype:
+        return arr
+    return arr.view(dtype) if bits else arr.astype(dtype)
+
+
+def _place(value, sharding):
+    """A restored leaf as a DTensor of `sharding` (a `runtime.sharding.
+    NamedSharding`: a mesh and the placements on it).  Every rank holds
+    the full array it read: each keeps its own shard, and nothing is
+    sent."""
+    from torch.distributed.tensor import distribute_tensor
+    t = torch.as_tensor(value).to(sharding.mesh.device_type)
+    return distribute_tensor(t, sharding.mesh, sharding.placements,
+                             src_data_rank=None)
 
 
 def _flatten(tree, prefix: str = "") -> dict:
@@ -80,21 +120,22 @@ def _rebuild(tree, vals: dict):
     return dataclasses.replace(tree, **vals)
 
 
-def _unflatten_into(tree, arrays: dict, prefix: str = ""):
-    """The structure of `tree` with its leaves read from `arrays`, each
-    converted to the template leaf's dtype (a numpy array for an array or
-    tensor leaf, a 0-d array for a Python scalar; a CPU tensor for a bf16
-    tensor leaf)."""
+def _unflatten_into(tree, arrays: dict, shardings=None, prefix: str = ""):
+    """The structure of `tree` with its leaves read from `arrays`
+    (`_read_leaf`); a leaf whose entry in `shardings` (a tree shaped like
+    `tree`, or None) is not None comes back as a DTensor of it.  A
+    sharding in place of a subtree places every leaf under it."""
     kids = _children(tree)
     if kids is None:
-        arr = arrays[prefix]
-        dtype = _host_dtype(tree)
-        arr = arr if arr.dtype == dtype else arr.astype(dtype)
-        if isinstance(tree, torch.Tensor) and tree.dtype == torch.bfloat16:
-            return torch.from_numpy(arr).view(torch.bfloat16)
-        return arr
+        value = _read_leaf(arrays[prefix], tree)
+        return value if shardings is None else _place(value, shardings)
+    if shardings is None or hasattr(shardings, "placements"):
+        sub = dict.fromkeys((name for name, _ in kids), shardings)
+    else:
+        sub = dict(_children(shardings))
     vals = {name: _unflatten_into(
-        child, arrays, f"{prefix}/{name}" if prefix else name)
+        child, arrays, sub.get(name),
+        f"{prefix}/{name}" if prefix else name)
         for name, child in kids}
     return _rebuild(tree, vals)
 
@@ -169,16 +210,22 @@ class Checkpointer:
         with open(path) as f:
             return json.load(f)
 
-    def restore(self, template, step: int | None = None) -> tuple:
+    def restore(self, template, step: int | None = None,
+                shardings=None) -> tuple:
         """Restore into the structure and dtypes of `template`; returns
-        `(state of host arrays, step)` (bf16 leaves as CPU tensors)."""
+        `(state, step)`: host arrays, bf16 leaves as CPU tensors.  With
+        `shardings` (a tree shaped like `template`, as `runtime.sharding.
+        shardings(specs, mesh)` gives it for the mesh to restore onto,
+        which may differ from the writer's: elastic restart), a leaf with
+        a sharding comes back as a DTensor of it on its mesh; a None leaf
+        as without."""
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoints under {self.dir}")
         path = os.path.join(self.dir, f"step-{step:08d}", "state.npz")
         with np.load(path) as z:
             arrays = {k: z[k] for k in z.files}
-        return _unflatten_into(template, arrays), step
+        return _unflatten_into(template, arrays, shardings), step
 
 
 # ---------------------------------------------------------------------------

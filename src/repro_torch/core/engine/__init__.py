@@ -15,7 +15,9 @@ with a leading lane dimension:
 cycle index on the device, replayed as a captured CUDA graph on CUDA and
 run eagerly on the CPU) are the cycle loops; `sweep.BatchedSweep` runs
 a (rate x seed x fault) lane grid through them, at once or window by
-window (`sweep.LaneSession`).
+window (`sweep.LaneSession`), and `sweep.run_scan_batched` is the
+reference's public single-device batched scan, returning the final
+state.
 """
 from .state import (SimState, SimStats, build_consts, build_lane,
                     epoch_index, is_scheduled, lane_epoch, make_state,
@@ -30,7 +32,8 @@ from .fused import (capacity_ladder, compact_rows, grant_form,
                     next_rung)
 from .step import make_step, run_scan, superstep_body
 from .sweep import (BatchedSweep, LaneRun, LaneSession, SweepResult,
-                    clear_aot_cache, compile_counter, superstep)
+                    clear_aot_cache, compile_counter, lane_mesh,
+                    run_scan_batched, superstep)
 
 __all__ = [
     "SimState", "SimStats", "Requests", "build_consts", "build_lane",
@@ -42,5 +45,6 @@ __all__ = [
     "initial_capacity", "make_compact_step", "make_fused_step", "next_rung",
     "make_step", "run_scan", "superstep_body",
     "BatchedSweep", "LaneRun", "LaneSession", "SweepResult",
-    "clear_aot_cache", "compile_counter", "superstep",
+    "clear_aot_cache", "compile_counter", "lane_mesh", "run_scan_batched",
+    "superstep",
 ]

@@ -74,9 +74,11 @@ from .state import (F_CLS, F_DEST, F_ITIME, F_META, F_META2, F_MIS, F_OUT,
                     resolve_reap_age, with_sink_row)
 from .stats import live_rows, zero_stats
 
-# winner-record columns: destination, generation cycle, misroute wg,
+# winner-record columns (the [B, E, NUM_W_FIELDS] table, exchanged across
+# channel shards): destination, generation cycle, misroute wg,
 # meta-to-store, class
-W_DEST, W_ITIME, W_MIS, W_META, W_CLS = range(5)
+NUM_W_FIELDS = 5
+W_DEST, W_ITIME, W_MIS, W_META, W_CLS = range(NUM_W_FIELDS)
 
 
 def _pow2(n: int) -> int:

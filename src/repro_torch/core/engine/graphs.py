@@ -90,7 +90,7 @@ def _leaves(state: SimState) -> dict:
     return out
 
 
-def _static_state(state: SimState) -> SimState:
+def state_like(state: SimState) -> SimState:
     """Buffers shaped like `state`; `b_pkt` keeps its spare channel row."""
     fields = {k: torch.empty_like(v) for k, v in vars(state).items()
               if k not in ("stats", "b_pkt")}
@@ -101,7 +101,7 @@ def _static_state(state: SimState) -> SimState:
     return SimState(stats=stats, **fields)
 
 
-def _copy_state(dst: SimState, src: SimState) -> None:
+def copy_state(dst: SimState, src: SimState) -> None:
     """`src` into the buffers of `dst`; a field the step updated in place
     (`b_pkt`, `s_pkt`) is the same tensor and is skipped."""
     d, s = _leaves(dst), _leaves(src)
@@ -126,7 +126,7 @@ class CycleGraph:
         self.K = K
         self._body = superstep_body(step, K)
         dev = rate_pkt.device
-        self.state = _static_state(state0)
+        self.state = state_like(state0)
         self.rate = torch.empty_like(rate_pkt)
         # shared lanes keep one [1, ...] buffer behind a stride-0 view
         self._fl_base = {k: torch.empty_like(v[:1] if v.stride(0) == 0
@@ -147,7 +147,7 @@ class CycleGraph:
              t0: int = 0) -> None:
         """Copy a run's inputs into the static buffers; `t` to cycle
         `t0`."""
-        _copy_state(self.state, state0)
+        copy_state(self.state, state0)
         self.rate.copy_(rate_pkt)
         for k, base in self._fl_base.items():
             v = fl[k]
@@ -158,7 +158,7 @@ class CycleGraph:
     def _advance(self) -> None:
         state = self._body(self.state, self.t, self.subs, self.rate,
                            self.fl, self.reset_at)
-        _copy_state(self.state, state)
+        copy_state(self.state, state)
         self.t.add_(self.K)
 
     def _capture(self, state0, rate_pkt, fl) -> None:
@@ -211,7 +211,7 @@ class CycleGraph:
         from absolute cycle `t0` in place (copied in, replayed, copied
         back out)."""
         self._replay(state, rate_pkt, fl, reset_at, subs, t0)
-        _copy_state(state, self.state)
+        copy_state(state, self.state)
 
 
 def graph_for(step, K: int, state0: SimState, rate_pkt, fl) -> tuple:

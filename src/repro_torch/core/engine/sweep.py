@@ -224,6 +224,32 @@ def _scan_lanes_seq(step, cycles: int, reset_at: int, K: int, loop: str,
                         for k in vars(stats[0])}), made, capture_s)
 
 
+def run_scan_batched(step, cycles: int, reset_at: int, state0, rate_pkt,
+                     keys, lanes, per_lane_faults: bool) -> SimState:
+    """Single-device batched scan, the reference's stable public entry
+    point: the B lanes of `state0` (offered packet rates `rate_pkt` [B],
+    keys [B, 2]) advance `cycles` cycles in lockstep from cycle 0, the
+    stats zeroed after cycle `reset_at`; returns the final `SimState`,
+    every field.  `lanes` is lane-stacked ([B, ...]) with
+    `per_lane_faults`, else one lane dict shared by every lane.
+
+    It draws the key chain `BatchedSweep` draws and runs the loop it runs
+    on the lanes' device: `run_steps` on the CPU; on CUDA a `CycleGraph`
+    of one cycle (captured once a signature), which copies the state in
+    and back out around its replays.  `state0` is left as it was (the
+    reference donates it)."""
+    B = int(rate_pkt.shape[0])
+    fl = lanes if per_lane_faults else share_lanes(lanes, B)
+    state = graphs.state_like(state0)
+    graphs.copy_state(state, state0)
+    subs = _key_chain(keys, cycles)
+    if rate_pkt.device.type != "cuda":
+        return run_steps(step, 0, subs, reset_at, state, rate_pkt, fl)
+    graph, _ = graphs.graph_for(step, 1, state, rate_pkt, fl)
+    graph.advance(state, rate_pkt, fl, reset_at, subs, 0)
+    return state
+
+
 def offered_to_rate_pkt(offered_per_chip: float, cfg,
                         terms_per_chip: float) -> float:
     """Offered flits/cycle/chip -> per-terminal packet-generation rate;

@@ -23,6 +23,8 @@ stacked layout, so `cache_specs` follows the reference one to one.
 """
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import numpy as np
 import torch
 
@@ -284,10 +286,20 @@ def placements(spec, mesh) -> tuple:
     return tuple(out)
 
 
+class NamedSharding(NamedTuple):
+    """Where a tensor lives: a `DeviceMesh` and its DTensor placements on
+    it (the counterpart of the reference's `jax.sharding.NamedSharding`,
+    what `Checkpointer.restore(..., shardings=)` places a leaf by)."""
+
+    mesh: object
+    placements: tuple
+
+
 def shardings(tree_specs, mesh):
-    """The placements of every spec of `tree_specs` (a dict / list tree of
-    `PartitionSpec`s) on `mesh`."""
-    return _tree_map(lambda _p, s: placements(s, mesh), tree_specs)
+    """The `NamedSharding` on `mesh` of every spec of `tree_specs` (a dict
+    / list tree of `PartitionSpec`s)."""
+    return _tree_map(lambda _p, s: NamedSharding(mesh, placements(s, mesh)),
+                     tree_specs)
 
 
 def distribute(t: torch.Tensor, spec, mesh) -> torch.Tensor:

@@ -26,7 +26,7 @@ import re
 from pathlib import Path
 
 import pytest
-import torch
+torch = pytest.importorskip("torch")
 
 from repro_torch.analysis import Allowlist, Report
 from repro_torch.analysis import capacitypass as PK
@@ -35,7 +35,7 @@ from repro_torch.analysis import servepass as PSV
 from repro_torch.analysis import specpass as PS
 from repro_torch.analysis import steppass as PST
 from repro_torch.analysis.check import main, repo_root
-from repro_torch.analysis.lint import run_lint
+from repro_torch.analysis.lint import LINT_FILES, run_lint
 from repro_torch.core.engine import graphs
 from repro_torch.exp import registry as PR
 from repro_torch.exp import runner as PRUNNER
@@ -409,7 +409,29 @@ def test_port_and_chip_smoke_lint_clean():
     assert not any(f.suppressed for f in report.findings)
     [cov] = [f for f in findings if f.rule == "LINT_COVERAGE"]
     n = int(re.search(r"linted (\d+) files", cov.message).group(1))
-    assert n == len(list((ROOT / "src" / "repro_torch").rglob("*.py"))) + 1
+    assert all((ROOT / name).is_file() for name in LINT_FILES)
+    assert n == (len(list((ROOT / "src" / "repro_torch").rglob("*.py")))
+                 + len(LINT_FILES))
+
+
+def test_lint_covers_the_port_examples_only(tmp_path):
+    """REPRO004 and REPRO005 on the port's example scripts; the
+    reference's scripts beside them are not linted, and REPRO004 is
+    about scripts, not the package."""
+    hack = 'import sys\nsys.path.insert(0, "src")\nfrom repro import exp\n'
+    files = {"examples/torch_serve_lm.py": hack,
+             "examples/serve_lm.py": hack,
+             "examples/torch_train_lm.py": "import torch\n",
+             "src/repro_torch/launch/hack.py": hack.replace("repro ",
+                                                            "os ")}
+    for rel, text in files.items():
+        p = tmp_path / rel
+        p.parent.mkdir(parents=True, exist_ok=True)
+        p.write_text(text)
+    errors = [f for f in run_lint(tmp_path) if f.severity == "error"]
+    assert {(f.rule, f.location) for f in errors} == {
+        ("REPRO004", "examples/torch_serve_lm.py:2"),
+        ("REPRO005", "examples/torch_serve_lm.py:3")}
 
 
 # ---------------------------------------------------------------------------

@@ -11,6 +11,7 @@ import pytest
 from repro.core import analytical as A
 from repro.core import cost_model as CM
 from repro.core import topology as T
+torch = pytest.importorskip("torch")
 from repro_torch.core import analytical as PA
 from repro_torch.core import cost_model as PCM
 from repro_torch.core import topology as PT

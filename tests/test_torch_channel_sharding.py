@@ -20,7 +20,7 @@ import functools
 
 import numpy as np
 import pytest
-import torch
+torch = pytest.importorskip("torch")
 
 from repro.core import topology as JT
 from repro.core import traffic as JTR

@@ -14,7 +14,7 @@ escalated rung, and still escalate explicit pins.
 """
 import numpy as np
 import pytest
-import torch
+torch = pytest.importorskip("torch")
 
 from repro.core import topology as JT
 from repro.core import traffic as JTR

@@ -15,7 +15,7 @@ import dataclasses
 
 import numpy as np
 import pytest
-import torch
+torch = pytest.importorskip("torch")
 
 from repro_torch.configs.registry import get_config
 from repro_torch.core import topology as T

@@ -27,7 +27,7 @@ import textwrap
 
 import numpy as np
 import pytest
-import torch
+torch = pytest.importorskip("torch")
 
 from repro.runtime import hlo_analysis as JH
 from repro_torch.launch import dryrun as D

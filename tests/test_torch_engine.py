@@ -13,7 +13,7 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 import pytest
-import torch
+torch = pytest.importorskip("torch")
 
 from repro.core import topology as JT
 from repro.core import traffic as JTR
@@ -238,3 +238,67 @@ def test_conservation_with_router_death_and_reaper(nets):
     # no parked packet survives a cycle
     assert all(r["stranded"] == 0 for r in trace
                if r["t"] >= stop + reap_age)
+
+
+# --- the public batched scan and the package exports ---------------------
+
+@pytest.mark.parametrize("per_lane_faults", [False, True])
+@pytest.mark.parametrize("impl", ["jnp", "fused", "compact"])
+def test_run_scan_batched_equals_reference(nets, impl, per_lane_faults,
+                                           cycles=48, reset_at=20):
+    """The public single-device batched scan: every `SimState` field of
+    the final state equal to the reference's `run_scan_batched`, three
+    lanes with their own keys and rates, the lanes' fault schedules
+    stacked (a link fault, a router death, a death and repair: two and
+    three epochs) or one warm schedule shared; the caller's `state0` is
+    left as it was."""
+    from repro.core.engine import run_scan_batched as jax_run_scan_batched
+    from repro.core.engine import stack_lanes as jax_stack_lanes
+    from repro_torch.core.engine import run_scan_batched
+    jnet, pnet = nets["switchless"]
+    over = dict(vc_mode="updown", step_impl=impl)
+    jcfg, pcfg = JConfig(**over), SimConfig(**over)
+    kinds = ("warm", "router", "repair") if per_lane_faults else ("warm",)
+    faults = [_faults(jnet, kind, "updown") for kind in kinds]
+    jstep, consts = jax_make_step(jnet, jcfg, JTR.uniform(jnet))
+    pstep, pconsts = make_step(pnet, pcfg, PTR.uniform(pnet), device="cpu")
+    jl = [jax_build_lane(jnet, jcfg, jf) for jf, _ in faults]
+    pl = [build_lane(pnet, pcfg, pf, device="cpu") for _, pf in faults]
+    jlanes, plans = ((jax_stack_lanes(jl), stack_lanes(pl))
+                     if per_lane_faults else (jl[0], pl[0]))
+    rates = [0.3, 0.6, 0.9]
+    jstate = jax_run_scan_batched(
+        jstep, cycles, reset_at,
+        jax_make_state(jnet, jcfg, consts["NV"], (3,)),
+        jnp.asarray(rates, jnp.float32),
+        jnp.stack([jax.random.PRNGKey(s) for s in (0, 1, 2)]), jlanes,
+        per_lane_faults)
+    state0 = make_state(pnet, pcfg, pconsts["NV"], batch=(3,), device="cpu")
+    before = {k: v.clone() for k, v in vars(state0).items() if k != "stats"}
+    pstate = run_scan_batched(
+        pstep, cycles, reset_at, state0, torch.tensor(rates),
+        torch.stack([jr.PRNGKey(s) for s in (0, 1, 2)]), plans,
+        per_lane_faults)
+    for f in STATE_FIELDS:
+        assert np.array_equal(np.asarray(getattr(jstate, f)),
+                              getattr(pstate, f).numpy()), f
+    for f in STAT_FIELDS:
+        a, b = np.asarray(getattr(jstate.stats, f)), getattr(pstate.stats,
+                                                             f).numpy()
+        assert a.dtype == b.dtype and np.array_equal(a, b), f
+    assert int(pstate.stats.hops.sum()) > 0
+    assert all(torch.equal(v, getattr(state0, k)) for k, v in before.items())
+
+
+@pytest.mark.parametrize("package", ["repro.core", "repro.core.engine",
+                                     "repro.checkpoint"])
+def test_port_exports_every_reference_name(package):
+    """Every name in a reference package's `__all__` imports from the
+    port's counterpart too."""
+    import importlib
+    ref = importlib.import_module(package)
+    port = importlib.import_module(package.replace("repro", "repro_torch",
+                                                   1))
+    missing = [n for n in ref.__all__ if not hasattr(port, n)]
+    assert not missing, f"{port.__name__} lacks {missing}"
+    assert set(ref.__all__) <= set(port.__all__)

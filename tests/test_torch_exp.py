@@ -15,7 +15,7 @@ import json
 
 import numpy as np
 import pytest
-import torch
+torch = pytest.importorskip("torch")
 
 import repro.exp as RX
 from repro.core.engine import clear_aot_cache as ref_clear_aot_cache

@@ -10,7 +10,7 @@ from pathlib import Path
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
+torch = pytest.importorskip("torch")
 
 from repro.kernels.flash_attention import ops as fa_ops
 from repro.kernels.flash_attention import ref as fa_ref

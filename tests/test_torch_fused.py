@@ -15,7 +15,7 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 import pytest
-import torch
+torch = pytest.importorskip("torch")
 
 from repro.core import topology as JT
 from repro.core import traffic as JTR

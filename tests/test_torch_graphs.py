@@ -24,7 +24,7 @@ import dataclasses
 
 import numpy as np
 import pytest
-import torch
+torch = pytest.importorskip("torch")
 
 from repro_torch.core import topology as T
 from repro_torch.core import traffic

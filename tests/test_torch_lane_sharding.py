@@ -12,7 +12,7 @@ import dataclasses
 import functools
 
 import pytest
-import torch
+torch = pytest.importorskip("torch")
 
 from repro.core import topology as JT
 from repro.core import traffic as JTR

@@ -16,7 +16,7 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 import pytest
-import torch
+torch = pytest.importorskip("torch")
 
 from repro.core.engine.fused import _grant as jax_grant
 from repro.kernels.netsim import cycle_core as jax_cycle_core

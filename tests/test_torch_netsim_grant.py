@@ -14,7 +14,7 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 import pytest
-import torch
+torch = pytest.importorskip("torch")
 
 from repro.core import engine
 from repro.core import topology as T

@@ -7,7 +7,7 @@ sites (traffic, injection, misrouting, the sweep's per-cycle key chain).
 import numpy as np
 import jax
 import pytest
-import torch
+torch = pytest.importorskip("torch")
 
 from repro.core.engine.sweep import _key_chain as jax_key_chain
 from repro_torch import random as jr

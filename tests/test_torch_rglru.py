@@ -14,7 +14,7 @@ from pathlib import Path
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
+torch = pytest.importorskip("torch")
 
 from repro.kernels.rglru import ops as rg_ops
 from repro.kernels.rglru import ref as rg_ref

@@ -19,7 +19,7 @@ import json
 
 import numpy as np
 import pytest
-import torch
+torch = pytest.importorskip("torch")
 
 from repro.exp import get_scenario as ref_scenario
 from repro.exp.serve import SimService as RefService

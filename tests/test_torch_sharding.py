@@ -20,7 +20,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
+torch = pytest.importorskip("torch")
 
 from repro.configs import registry as jreg
 from repro.configs.base import LM_SHAPES, shape_by_name
@@ -235,8 +235,10 @@ def test_placements_of_specs(fake_mesh):
     assert SH.placements(P(), fake_mesh) == (Replicate(), Replicate())
     tree = SH.shardings({"a": P("model"), "b": [P(None, "data")]},
                         fake_mesh)
-    assert tree == {"a": (Replicate(), Shard(0)),
-                    "b": [(Shard(1), Replicate())]}
+    assert tree == {"a": SH.NamedSharding(fake_mesh, (Replicate(), Shard(0))),
+                    "b": [SH.NamedSharding(fake_mesh,
+                                           (Shard(1), Replicate()))]}
+    assert tree["a"].mesh is fake_mesh
     t = SH.distribute(torch.zeros(8, 12), P("data", "model"), fake_mesh)
     assert tuple(t.to_local().shape) == (4, 3)
 

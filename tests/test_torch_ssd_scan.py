@@ -12,7 +12,7 @@ from pathlib import Path
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
+torch = pytest.importorskip("torch")
 
 from repro.kernels.ssd_scan import ops as sd_ops
 from repro.kernels.ssd_scan import ref as sd_ref

@@ -11,7 +11,7 @@ import dataclasses
 import numpy as np
 import jax.numpy as jnp
 import pytest
-import torch
+torch = pytest.importorskip("torch")
 
 from repro.core import topology as JT
 from repro.core.routing import make_route_fn as jax_route_fn

@@ -8,7 +8,7 @@ port's numpy CDG is also held to networkx's on the same paths."""
 import networkx as nx
 import numpy as np
 import pytest
-import torch
+torch = pytest.importorskip("torch")
 
 from repro.core import routing as R
 from repro.core import topology as T

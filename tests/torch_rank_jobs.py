@@ -226,3 +226,51 @@ def launcher(rank, world, argv):
     except ValueError as e:
         err = str(e)
     return (tr.history, full, placed, err) if rank == 0 else err
+
+
+def elastic_restore(rank, world, ckpt_dir, saved, write_specs, read_specs):
+    """Elastic restart on `world` ranks: the tensors of `saved` (a dict of
+    numpy arrays; int16 ones are bf16 bit patterns) placed by
+    `write_specs` on a ("data" world, "model" 1) mesh, gathered and
+    written by rank 0, then restored by every rank onto a (1, world) mesh
+    with `Checkpointer.restore(..., shardings=)` of `read_specs` (a
+    Python scalar rides along unplaced).  A spec is a plain tuple of
+    `PartitionSpec` entries.  Returns this rank's local
+    shards, the restored full tensors (bf16 as int16 patterns), each
+    leaf's placements and the restored scalar."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.runtime import sharding as SH
+
+    def tensor(a):
+        t = torch.from_numpy(a)
+        return t.view(torch.bfloat16) if a.dtype == np.int16 else t
+
+    def host(t):
+        t = t.detach()
+        return (t.view(torch.int16) if t.dtype == torch.bfloat16
+                else t).numpy()
+
+    writer = init_device_mesh("cpu", (world, 1),
+                              mesh_dim_names=("data", "model"))
+    placed = {k: SH.distribute(tensor(a), SH.P(*write_specs[k]), writer)
+              for k, a in saved.items()}
+    full = {k: TT.full(t) for k, t in placed.items()}
+    ckpt = Checkpointer(ckpt_dir, keep=1)
+    if rank == 0:
+        ckpt.save(7, dict(full, cycle=4096))
+    dist.barrier()
+    reader = init_device_mesh("cpu", (1, world),
+                              mesh_dim_names=("data", "model"))
+    shardings = dict(SH.shardings({k: SH.P(*s) for k, s in
+                                   read_specs.items()}, reader), cycle=None)
+    template = dict({k: torch.zeros_like(t) for k, t in full.items()},
+                    cycle=0)
+    back, step = ckpt.restore(template, shardings=shardings)
+    assert step == 7
+    return dict(local={k: host(back[k].to_local()) for k in saved},
+                full={k: host(TT.full(back[k])) for k in saved},
+                placements={k: repr(back[k].placements) for k in saved},
+                mesh={k: back[k].device_mesh.mesh.tolist() for k in saved},
+                cycle=int(back["cycle"]))
