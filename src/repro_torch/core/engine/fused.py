@@ -63,6 +63,7 @@ from ... import env_int
 from ... import random as jr
 from ...device import physical_device
 from ...kernels.netsim import ops as netsim_ops
+from ...spans import span
 from ...tensors import flat_index, lane_take, take, take_flat, to_device
 from ..routing import num_vcs
 from ..topology import EJECT, NUM_CH_TYPES, Network
@@ -364,104 +365,108 @@ def _make_compact(net, cfg, pattern, inject_mask, consts, route_kernel, C):
     def step(state, t_key_rate_fl):
         t, key, rate_pkt, fl = t_key_rate_fl
         cached = not is_scheduled(fl)
-        fl = resolve_epoch(fl, t)
-        state = inject(state, t, key, rate_pkt, fl)
-        B = state.b_head.shape[0]
-        lane = torch.arange(B, device=dev).view(B, 1)
+        with span("step.inject"):
+            fl = resolve_epoch(fl, t)
+            state = inject(state, t, key, rate_pkt, fl)
+        with span("step.requests"):
+            B = state.b_head.shape[0]
+            lane = torch.arange(B, device=dev).view(B, 1)
 
-        # live-row census + stable compaction.  `occ` is exact (dense,
-        # independent of C): it feeds the occ_peak certificate.  Slot k
-        # holds the first row whose live prefix count reaches k + 1 —
-        # the k-th live row in the oracle's row order — or the sentinel N
-        # past the live count, so `aid` stays sorted per lane; live rows
-        # past slot C - 1 are dropped, as in the reference
-        live = torch.cat([(state.b_count[:, :ER] > 0).reshape(B, -1),
-                          state.s_count > 0], 1)                  # [B, N]
-        cs = torch.cumsum(live, 1, dtype=torch.int32)
-        occ = cs[:, -1]
-        aid = torch.searchsorted(cs, targets.expand(B, C).contiguous(),
-                                 out_int32=True)                 # [B, C]
-        slot_ok = slot_iota < occ[:, None]
+            # live-row census + stable compaction.  `occ` is exact (dense,
+            # independent of C): it feeds the occ_peak certificate.  Slot k
+            # holds the first row whose live prefix count reaches k + 1 —
+            # the k-th live row in the oracle's row order — or the sentinel N
+            # past the live count, so `aid` stays sorted per lane; live rows
+            # past slot C - 1 are dropped, as in the reference
+            live = torch.cat([(state.b_count[:, :ER] > 0).reshape(B, -1),
+                              state.s_count > 0], 1)                  # [B, N]
+            cs = torch.cumsum(live, 1, dtype=torch.int32)
+            occ = cs[:, -1]
+            aid = torch.searchsorted(cs, targets.expand(B, C).contiguous(),
+                                     out_int32=True)                 # [B, C]
+            slot_ok = slot_iota < occ[:, None]
 
-        # per-slot request assembly: one C-row head gather + one C-row
-        # source-queue gather, merged by slot kind
-        is_buf = aid < ER * NV
-        e = (aid // NV).clamp(0, ER - 1)
-        v = aid.clamp(0, ER * NV - 1) % NV
-        tt = (aid - ER * NV).clamp(0, T - 1)
-        bh = lane_take(state.b_head, e, v)
-        brec = take(with_sink_row(state.b_pkt), lane, e, v, bh,
-                    clamp=False)                                 # [B, C, 8]
-        srec = take(state.s_pkt, lane, tt, lane_take(state.s_head, tt),
-                    clamp=False)                                 # [B, C, 3]
-        ready = ~is_buf | (brec[..., F_READY] <= t)
-        valid = slot_ok & ready
-        if cached:
-            out_b, cls_b, meta2_b = (brec[..., F_OUT], brec[..., F_CLS],
-                                     brec[..., F_META2])
-        else:
-            out_b, cls_b, meta2_b = route_kernel(
-                fl, take(tb.ch_dst, e), brec[..., F_DEST],
-                brec[..., F_MIS], brec[..., F_META])
-        out = torch.where(is_buf, out_b, take(tb.inject_ch, tt)).to(
-            torch.int32)
-        cls = torch.where(is_buf, cls_b, 0).to(torch.int32)
-        itime = torch.where(is_buf, brec[..., F_ITIME], srec[..., F_ITIME])
-        dest = torch.where(is_buf, brec[..., F_DEST], srec[..., F_DEST])
-        mis = torch.where(is_buf, brec[..., F_MIS], srec[..., F_MIS])
-        meta2 = torch.where(is_buf, meta2_b, 0).to(torch.int32)
-        rowok = valid & (out >= 0)
-        # undeliverable rows are live, so whenever occ <= C they are all
-        # in the active set: the reap mask is exact under the same
-        # certificate that covers the grant
-        undel, reap = _reap(reap_age, valid, out, itime, fl, t, E)
+            # per-slot request assembly: one C-row head gather + one C-row
+            # source-queue gather, merged by slot kind
+            is_buf = aid < ER * NV
+            e = (aid // NV).clamp(0, ER - 1)
+            v = aid.clamp(0, ER * NV - 1) % NV
+            tt = (aid - ER * NV).clamp(0, T - 1)
+            bh = lane_take(state.b_head, e, v)
+            brec = take(with_sink_row(state.b_pkt), lane, e, v, bh,
+                        clamp=False)                             # [B, C, 8]
+            srec = take(state.s_pkt, lane, tt, lane_take(state.s_head, tt),
+                        clamp=False)                             # [B, C, 3]
+            ready = ~is_buf | (brec[..., F_READY] <= t)
+            valid = slot_ok & ready
+            if cached:
+                out_b, cls_b, meta2_b = (brec[..., F_OUT], brec[..., F_CLS],
+                                         brec[..., F_META2])
+            else:
+                out_b, cls_b, meta2_b = route_kernel(
+                    fl, take(tb.ch_dst, e), brec[..., F_DEST],
+                    brec[..., F_MIS], brec[..., F_META])
+            out = torch.where(is_buf, out_b, take(tb.inject_ch, tt)).to(
+                torch.int32)
+            cls = torch.where(is_buf, cls_b, 0).to(torch.int32)
+            itime = torch.where(is_buf, brec[..., F_ITIME], srec[..., F_ITIME])
+            dest = torch.where(is_buf, brec[..., F_DEST], srec[..., F_DEST])
+            mis = torch.where(is_buf, brec[..., F_MIS], srec[..., F_MIS])
+            meta2 = torch.where(is_buf, meta2_b, 0).to(torch.int32)
+            rowok = valid & (out >= 0)
+            # undeliverable rows are live, so whenever occ <= C they are all
+            # in the active set: the reap mask is exact under the same
+            # certificate that covers the grant
+            undel, reap = _reap(reap_age, valid, out, itime, fl, t, E)
 
         # grant over the C active rows; the global row id is the
         # oracle's tie-break
-        occ_min, occ_arg = _occ_tables(state.b_count, NC, vpc)
-        elig_ck = (occ_min < S) | tb.is_ej_ch[:, None]
-        ok = rowok & _row_elig(elig_ck, out, cls, E)
-        ch_ok = (state.ch_busy == 0) & fl["ch_alive"]
-        won_ch, wprio, win_slot = netsim_ops.cycle_core(
-            out, itime, ok, ch_ok, r2=R2, prio=aid)
+        with span("step.grant"):
+            occ_min, occ_arg = _occ_tables(state.b_count, NC, vpc)
+            elig_ck = (occ_min < S) | tb.is_ej_ch[:, None]
+            ok = rowok & _row_elig(elig_ck, out, cls, E)
+            ch_ok = (state.ch_busy == 0) & fl["ch_alive"]
+            won_ch, wprio, win_slot = netsim_ops.cycle_core(
+                out, itime, ok, ch_ok, r2=R2, prio=aid)
 
         # dense winner table: each granting channel's winning row id
         # back to its active slot (aid is sorted: one binary search)
-        wslot_i = torch.searchsorted(aid, wprio, out_int32=True).clamp(
-            0, C - 1)
-        crec = torch.stack([dest, itime, mis, meta2, cls], dim=-1)
-        w = lane_take(crec, wslot_i)                              # [B, E, 5]
-        push, vc_oh, witime = _commit(
-            state, tb, t, cached, fl, route_kernel, won_ch, w, occ_min,
-            occ_arg, lambda wvc: lane_take(state.b_head, tb.ch_iota,
-                                           wvc.clamp(0, NV - 1)),
-            NC, vpc, S)
+        with span("step.commit"):
+            wslot_i = torch.searchsorted(aid, wprio, out_int32=True).clamp(
+                0, C - 1)
+            crec = torch.stack([dest, itime, mis, meta2, cls], dim=-1)
+            w = lane_take(crec, wslot_i)                          # [B, E, 5]
+            push, vc_oh, witime = _commit(
+                state, tb, t, cached, fl, route_kernel, won_ch, w, occ_min,
+                occ_arg, lambda wvc: lane_take(state.b_head, tb.ch_iota,
+                                               wvc.clamp(0, NV - 1)),
+                NC, vpc, S)
 
-        # pops: reaped rows pop like winners but push nowhere (the masks
-        # are disjoint); rows that pop nothing add 0 at distinct places
-        i32 = torch.int32
-        pop = win_slot if reap is None else win_slot | reap
-        spread = torch.arange(B * C, device=dev).view(B, C)
-        pop_b = pop & is_buf
-        pop1 = torch.zeros((B, E, NV), dtype=i32, device=dev)
-        pop1.view(-1).index_add_(
-            0, torch.where(pop_b, (lane * E + e) * NV + v,
-                           spread % pop1.numel()).reshape(-1),
-            pop_b.reshape(-1).to(i32))
-        pop_t = pop & ~is_buf
-        pop_s = torch.zeros((B, T), dtype=i32, device=dev)
-        pop_s.view(-1).index_add_(
-            0, torch.where(pop_t, lane * T + tt,
-                           spread % pop_s.numel()).reshape(-1),
-            pop_t.reshape(-1).to(i32))
-        b_head = (state.b_head + pop1) % S
-        b_count = state.b_count - pop1 + (push[..., None] & vc_oh).to(i32)
-        s_head = (state.s_head + pop_s) % Q
-        s_count = state.s_count - pop_s
-        ch_busy = torch.where(won_ch, tb.ch_ser - 1,
-                              torch.clamp(state.ch_busy - 1, min=0))
-        st = _stats(state.stats, tb, t, won_ch, witime, occ, valid, out,
-                    undel, reap)
+            # pops: reaped rows pop like winners but push nowhere (the masks
+            # are disjoint); rows that pop nothing add 0 at distinct places
+            i32 = torch.int32
+            pop = win_slot if reap is None else win_slot | reap
+            spread = torch.arange(B * C, device=dev).view(B, C)
+            pop_b = pop & is_buf
+            pop1 = torch.zeros((B, E, NV), dtype=i32, device=dev)
+            pop1.view(-1).index_add_(
+                0, torch.where(pop_b, (lane * E + e) * NV + v,
+                               spread % pop1.numel()).reshape(-1),
+                pop_b.reshape(-1).to(i32))
+            pop_t = pop & ~is_buf
+            pop_s = torch.zeros((B, T), dtype=i32, device=dev)
+            pop_s.view(-1).index_add_(
+                0, torch.where(pop_t, lane * T + tt,
+                               spread % pop_s.numel()).reshape(-1),
+                pop_t.reshape(-1).to(i32))
+            b_head = (state.b_head + pop1) % S
+            b_count = state.b_count - pop1 + (push[..., None] & vc_oh).to(i32)
+            s_head = (state.s_head + pop_s) % Q
+            s_count = state.s_count - pop_s
+            ch_busy = torch.where(won_ch, tb.ch_ser - 1,
+                                  torch.clamp(state.ch_busy - 1, min=0))
+            st = _stats(state.stats, tb, t, won_ch, witime, occ, valid, out,
+                        undel, reap)
         return state.replace(
             b_head=b_head, b_count=b_count, s_head=s_head, s_count=s_count,
             ch_busy=ch_busy, stats=st), None
@@ -488,83 +493,88 @@ def _make_unsharded(net, cfg, pattern, inject_mask, consts, route_kernel):
     def step(state, t_key_rate_fl):
         t, key, rate_pkt, fl = t_key_rate_fl
         cached = not is_scheduled(fl)
-        fl = resolve_epoch(fl, t)
-        state = inject(state, t, key, rate_pkt, fl)
-        occ = live_rows(state)
-        B = state.b_head.shape[0]
+        with span("step.inject"):
+            fl = resolve_epoch(fl, t)
+            state = inject(state, t, key, rate_pkt, fl)
+        with span("step.requests"):
+            occ = live_rows(state)
+            B = state.b_head.shape[0]
 
-        # request rows in the oracle's order ([:ER]*NV buffer heads, then
-        # T source queues); the row index IS the oracle's tie-break
-        lane3 = torch.arange(B, device=dev).view(B, 1, 1)
-        head = take(with_sink_row(state.b_pkt), lane3, e_idx, v_idx,
-                    state.b_head[:, :ER], clamp=False).reshape(
-                        B, ER * NV, -1)
-        r_valid = ((state.b_count[:, :ER] > 0).reshape(B, -1)
-                   & (head[..., F_READY] <= t))
-        if cached:
-            out_b, cls_b, meta2_b = (head[..., F_OUT], head[..., F_CLS],
-                                     head[..., F_META2])
-        else:
-            out_b, cls_b, meta2_b = route_kernel(
-                fl, cur_rows.expand(B, -1), head[..., F_DEST],
-                head[..., F_MIS], head[..., F_META])
-        sq = take(state.s_pkt, lane3[..., 0], t_idx, state.s_head,
-                  clamp=False)                                   # [B, T, 3]
-        out = torch.cat([out_b, tb.inject_ch.expand(B, T)], 1).to(
-            torch.int32)
-        cls = torch.cat([cls_b, torch.zeros_like(sq[..., 0])], 1).to(
-            torch.int32)
-        itime = torch.cat([head[..., F_ITIME], sq[..., F_ITIME]], 1)
-        valid = torch.cat([r_valid, state.s_count > 0], 1)
-        rowok = valid & (out >= 0)
-        undel, reap = _reap(reap_age, valid, out, itime, fl, t, E)
+            # request rows in the oracle's order ([:ER]*NV buffer heads, then
+            # T source queues); the row index IS the oracle's tie-break
+            lane3 = torch.arange(B, device=dev).view(B, 1, 1)
+            head = take(with_sink_row(state.b_pkt), lane3, e_idx, v_idx,
+                        state.b_head[:, :ER], clamp=False).reshape(
+                            B, ER * NV, -1)
+            r_valid = ((state.b_count[:, :ER] > 0).reshape(B, -1)
+                       & (head[..., F_READY] <= t))
+            if cached:
+                out_b, cls_b, meta2_b = (head[..., F_OUT], head[..., F_CLS],
+                                         head[..., F_META2])
+            else:
+                out_b, cls_b, meta2_b = route_kernel(
+                    fl, cur_rows.expand(B, -1), head[..., F_DEST],
+                    head[..., F_MIS], head[..., F_META])
+            sq = take(state.s_pkt, lane3[..., 0], t_idx, state.s_head,
+                      clamp=False)                               # [B, T, 3]
+            out = torch.cat([out_b, tb.inject_ch.expand(B, T)], 1).to(
+                torch.int32)
+            cls = torch.cat([cls_b, torch.zeros_like(sq[..., 0])], 1).to(
+                torch.int32)
+            itime = torch.cat([head[..., F_ITIME], sq[..., F_ITIME]], 1)
+            valid = torch.cat([r_valid, state.s_count > 0], 1)
+            rowok = valid & (out >= 0)
+            undel, reap = _reap(reap_age, valid, out, itime, fl, t, E)
 
         # grant: per-row credit gather, then the arbitration core
-        occ_min, occ_arg = _occ_tables(state.b_count, NC, vpc)
-        elig_ck = (occ_min < S) | tb.is_ej_ch[:, None]
-        ok = rowok & _row_elig(elig_ck, out, cls, E)
-        ch_ok = (state.ch_busy == 0) & fl["ch_alive"]
-        won_ch, wprio, win_row = netsim_ops.cycle_core(out, itime, ok,
-                                                       ch_ok, r2=R2)
+        with span("step.grant"):
+            occ_min, occ_arg = _occ_tables(state.b_count, NC, vpc)
+            elig_ck = (occ_min < S) | tb.is_ej_ch[:, None]
+            ok = rowok & _row_elig(elig_ck, out, cls, E)
+            ch_ok = (state.ch_busy == 0) & fl["ch_alive"]
+            won_ch, wprio, win_row = netsim_ops.cycle_core(out, itime, ok,
+                                                           ch_ok, r2=R2)
 
         # dense winner table: two E-row gathers (buffer / source rows)
-        is_buf = wprio < ER * NV
-        bclip = wprio.clamp(0, ER * NV - 1)
-        wb = lane_take(head, bclip)
-        ws = lane_take(sq, (wprio - ER * NV).clamp(0, T - 1))
-        if cached:
-            wmeta, wcls = wb[..., F_META2], wb[..., F_CLS]
-        else:
-            wmeta, wcls = lane_take(meta2_b, bclip), lane_take(cls_b, bclip)
-        w = torch.stack(
-            [torch.where(is_buf, wb[..., F_DEST], ws[..., F_DEST]),
-             torch.where(is_buf, wb[..., F_ITIME], ws[..., F_ITIME]),
-             torch.where(is_buf, wb[..., F_MIS], ws[..., F_MIS]),
-             torch.where(is_buf, wmeta, 0).to(torch.int32),
-             torch.where(is_buf, wcls, 0).to(torch.int32)], dim=-1)
-        push, vc_oh, witime = _commit(
-            state, tb, t, cached, fl, route_kernel, won_ch, w, occ_min,
-            occ_arg, lambda wvc: torch.where(
-                wvc[..., None] == tb.vc_iota, state.b_head, 0).sum(
-                    -1, dtype=torch.int32),
-            NC, vpc, S)
+        with span("step.commit"):
+            is_buf = wprio < ER * NV
+            bclip = wprio.clamp(0, ER * NV - 1)
+            wb = lane_take(head, bclip)
+            ws = lane_take(sq, (wprio - ER * NV).clamp(0, T - 1))
+            if cached:
+                wmeta, wcls = wb[..., F_META2], wb[..., F_CLS]
+            else:
+                wmeta = lane_take(meta2_b, bclip)
+                wcls = lane_take(cls_b, bclip)
+            w = torch.stack(
+                [torch.where(is_buf, wb[..., F_DEST], ws[..., F_DEST]),
+                 torch.where(is_buf, wb[..., F_ITIME], ws[..., F_ITIME]),
+                 torch.where(is_buf, wb[..., F_MIS], ws[..., F_MIS]),
+                 torch.where(is_buf, wmeta, 0).to(torch.int32),
+                 torch.where(is_buf, wcls, 0).to(torch.int32)], dim=-1)
+            push, vc_oh, witime = _commit(
+                state, tb, t, cached, fl, route_kernel, won_ch, w, occ_min,
+                occ_arg, lambda wvc: torch.where(
+                    wvc[..., None] == tb.vc_iota, state.b_head, 0).sum(
+                        -1, dtype=torch.int32),
+                NC, vpc, S)
 
-        # pops straight from the kernel's per-row mask; reaped rows pop
-        # like winners but push nowhere (the masks are disjoint)
-        i32 = torch.int32
-        pop = win_row if reap is None else win_row | reap
-        pop1 = torch.cat(
-            [pop[:, :ER * NV].reshape(B, ER, NV).to(i32),
-             torch.zeros((B, E - ER, NV), dtype=i32, device=dev)], 1)
-        pop_s = pop[:, ER * NV:].to(i32)
-        b_head = (state.b_head + pop1) % S
-        b_count = state.b_count - pop1 + (push[..., None] & vc_oh).to(i32)
-        s_head = (state.s_head + pop_s) % Q
-        s_count = state.s_count - pop_s
-        ch_busy = torch.where(won_ch, tb.ch_ser - 1,
-                              torch.clamp(state.ch_busy - 1, min=0))
-        st = _stats(state.stats, tb, t, won_ch, witime, occ, valid, out,
-                    undel, reap)
+            # pops straight from the kernel's per-row mask; reaped rows pop
+            # like winners but push nowhere (the masks are disjoint)
+            i32 = torch.int32
+            pop = win_row if reap is None else win_row | reap
+            pop1 = torch.cat(
+                [pop[:, :ER * NV].reshape(B, ER, NV).to(i32),
+                 torch.zeros((B, E - ER, NV), dtype=i32, device=dev)], 1)
+            pop_s = pop[:, ER * NV:].to(i32)
+            b_head = (state.b_head + pop1) % S
+            b_count = state.b_count - pop1 + (push[..., None] & vc_oh).to(i32)
+            s_head = (state.s_head + pop_s) % Q
+            s_count = state.s_count - pop_s
+            ch_busy = torch.where(won_ch, tb.ch_ser - 1,
+                                  torch.clamp(state.ch_busy - 1, min=0))
+            st = _stats(state.stats, tb, t, won_ch, witime, occ, valid, out,
+                        undel, reap)
         return state.replace(
             b_head=b_head, b_count=b_count, s_head=s_head, s_count=s_count,
             ch_busy=ch_busy, stats=st), None

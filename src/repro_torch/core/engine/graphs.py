@@ -44,6 +44,7 @@ from collections import OrderedDict
 import torch
 
 from ...kernels.netsim import ops as netsim_ops
+from ...spans import span
 from .state import SimState, SimStats, with_sink_row
 from .step import superstep_body
 
@@ -146,14 +147,15 @@ class CycleGraph:
     def load(self, state0: SimState, rate_pkt, fl, reset_at: int,
              t0: int = 0) -> None:
         """Copy a run's inputs into the static buffers; `t` to cycle
-        `t0`."""
-        copy_state(self.state, state0)
-        self.rate.copy_(rate_pkt)
-        for k, base in self._fl_base.items():
-            v = fl[k]
-            base.copy_(v[:1] if v.stride(0) == 0 else v)
-        self.t.fill_(t0)
-        self.reset_at.fill_(reset_at)
+        `t0` (the span `graph.copy`)."""
+        with span("graph.copy"):
+            copy_state(self.state, state0)
+            self.rate.copy_(rate_pkt)
+            for k, base in self._fl_base.items():
+                v = fl[k]
+                base.copy_(v[:1] if v.stride(0) == 0 else v)
+            self.t.fill_(t0)
+            self.reset_at.fill_(reset_at)
 
     def _advance(self) -> None:
         state = self._body(self.state, self.t, self.subs, self.rate,
@@ -186,15 +188,17 @@ class CycleGraph:
     def _replay(self, state0: SimState, rate_pkt, fl, reset_at: int,
                 subs, t0: int) -> None:
         """Load the inputs and advance ``len(subs)`` cycles (`subs` the
-        ``[cycles, B, 2]`` subkeys, a multiple of K) from cycle `t0`."""
+        ``[cycles, B, 2]`` subkeys, a multiple of K) from cycle `t0`; the
+        loop is the span `graph.replays`."""
         self.load(state0, rate_pkt, fl, reset_at, t0)
         K = self.K
-        for r in range(subs.shape[0] // K):
-            self.subs.copy_(subs[r * K:(r + 1) * K])
-            if self.graph is None:
-                self._advance()
-            else:
-                self.graph.replay()
+        with span("graph.replays"):
+            for r in range(subs.shape[0] // K):
+                self.subs.copy_(subs[r * K:(r + 1) * K])
+                if self.graph is None:
+                    self._advance()
+                else:
+                    self.graph.replay()
 
     def run(self, state0: SimState, rate_pkt, fl, reset_at: int,
             subs) -> SimStats:
@@ -202,8 +206,9 @@ class CycleGraph:
         copy of the final counters, so a later run may reuse the
         buffers."""
         self._replay(state0, rate_pkt, fl, reset_at, subs, 0)
-        return SimStats(**{k: v.clone()
-                           for k, v in vars(self.state.stats).items()})
+        with span("graph.copy"):
+            return SimStats(**{k: v.clone()
+                               for k, v in vars(self.state.stats).items()})
 
     def advance(self, state: SimState, rate_pkt, fl, reset_at: int, subs,
                 t0: int) -> None:
@@ -211,7 +216,8 @@ class CycleGraph:
         from absolute cycle `t0` in place (copied in, replayed, copied
         back out)."""
         self._replay(state, rate_pkt, fl, reset_at, subs, t0)
-        copy_state(state, self.state)
+        with span("graph.copy"):
+            copy_state(state, self.state)
 
 
 def graph_for(step, K: int, state0: SimState, rate_pkt, fl) -> tuple:

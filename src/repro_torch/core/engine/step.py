@@ -22,6 +22,7 @@ from __future__ import annotations
 import torch
 
 from ... import random as jr
+from ...spans import span
 from ..topology import Network
 from ..traffic import as_pattern
 from .apply import make_apply_fn
@@ -88,18 +89,21 @@ def _key_chain_seq(key: torch.Tensor, cycles: int) -> tuple:
     ``keys[0] == key``, so a window of r cycles hands ``keys[r]`` to the
     next one and the windows replay the one-shot chain.  Drawn on the CPU
     (same bits as on the card, far fewer device launches); the keys stay
-    there, the subkeys move to `key`'s device once."""
-    k = key.cpu()
-    keys, subs = [k], []
-    for _ in range(cycles):
-        s = jr.split(k)
-        k, sub = s[..., 0, :], s[..., 1, :]
-        keys.append(k)
-        subs.append(sub)
-    if not subs:
-        return (torch.stack(keys), torch.empty(
-            (0,) + tuple(key.shape), dtype=key.dtype, device=key.device))
-    return torch.stack(keys), torch.stack(subs).to(key.device)
+    there, the subkeys move to `key`'s device once.  The whole of it is
+    the span `sweep.key_chain`."""
+    with span("sweep.key_chain"):
+        k = key.cpu()
+        keys, subs = [k], []
+        for _ in range(cycles):
+            s = jr.split(k)
+            k, sub = s[..., 0, :], s[..., 1, :]
+            keys.append(k)
+            subs.append(sub)
+        if not subs:
+            return (torch.stack(keys), torch.empty(
+                (0,) + tuple(key.shape), dtype=key.dtype,
+                device=key.device))
+        return torch.stack(keys), torch.stack(subs).to(key.device)
 
 
 def _key_chain(key: torch.Tensor, cycles: int) -> torch.Tensor:
