@@ -24,6 +24,10 @@ Phases (any failure ends the run with a nonzero exit):
      there held to the two-pass `fused._grant` too, one at the radix-32
      network's channel count), (b) the live states of the first cycles of phase
      4's fused and compact runs, (c) timing at both steps' shapes;
+   - head_records: the fused step's record gathers (dense and picked) at
+     the benchmark's radix-16 switch-less shape (24 lanes), bit for bit
+     against the `take` expressions they replace, and timed beside them
+     and against their byte bounds (a `[head_records]` line);
 4. the main path on the paper's radix-16 evaluation network (g = 41:
    1,312 chips, 30,176 channels), 2 rates x 2 seeds = 4 lanes through
    `Simulator.sweep_grid`, its cycles replayed as captured CUDA graphs,
@@ -39,8 +43,10 @@ Phases (any failure ends the run with a nonzero exit):
    step's priority: the coop kernel for the oracle and fused steps, the
    three-pass kernel for the compact step's explicit priority; the
    wrappers' host counts tick only at each capture's warm-up and
-   recording), exact packet conservation on every lane, and the memory
-   the process holds with the three steps' graphs cached;
+   recording; the fused step's record gathers, `head_records`, one dense
+   and one picked launch a cycle), exact packet conservation on every
+   lane, and the memory the process holds with the three steps' graphs
+   cached;
 5. the port on the card against the port on the CPU on a small network,
    field for field, for all three steps across routing modes, cold and
    warm faults and the reaper, plus a compact run pinned below its live
@@ -764,8 +770,8 @@ def _lm_kernels():
 
 def _reset_launches():
     from repro_torch.kernels.netsim import ops
-    ops.grant.launches = ops.cycle_core.launches = 0
-    for fn in (ops.grant, ops.cycle_core):
+    for fn in (getattr(ops, w) for w in ops.WRAPPERS):
+        fn.launches = 0
         for kernel in fn.launches_by_kernel:
             fn.launches_by_kernel[kernel] = 0
     for fn in _lm_kernels().values():
@@ -816,27 +822,29 @@ def counted(run):
     return out, wall, device, host
 
 
-def check_counts(tag, wrapper, kernel, grid, cycles, device, host):
-    """Every arbitration of the sweep ran on `kernel` of `wrapper`, as the
-    kernel counted it on the card: each cycle of each run plus each
-    capture's warm-up (`expected_calls`); nothing on the other wrapper.
-    The wrapper's host count ticked where it launched: at each capture's
-    warm-up and recording, never at a replay."""
+def check_counts(tag, wrapper, kernel, grid, cycles, device, host,
+                 gathers=()):
+    """Every arbitration of the sweep ran on `kernel` of `wrapper`, and
+    every (wrapper, kernel) of `gathers` ran as often, as the kernels
+    counted it on the card: each cycle of each run plus each capture's
+    warm-up (`expected_calls`); nothing else on any wrapper.  The host
+    counts ticked where they launched: at each capture's warm-up and
+    recording, never at a replay."""
     from repro_torch.kernels.netsim import ops
     calls = expected_calls(grid, cycles)
-    other = next(w for w in ops.WRAPPERS if w != wrapper)
-    want = {k: calls if k == kernel else 0 for k in ops.KERNELS}
-    check(device[wrapper] == want,
-          f"{tag}: {wrapper} launches on the card {device[wrapper]} != "
-          f"{want} (cycles run + warm-up)")
-    check(not any(device[other].values()) and not any(host[other].values()),
-          f"{tag}: the step launched {other} {device[other]}")
     captures = grid.compile_count + grid.escalation_compiles
-    rec = {k: 2 * grid.superstep * captures if k == kernel else 0
-           for k in ops.KERNELS}
-    check(host[wrapper] == rec,
-          f"{tag}: {wrapper} host launches {host[wrapper]} != {rec} (a "
-          f"warm-up and a recording of each capture)")
+    ran = {(wrapper, kernel), *gathers}
+    for w in ops.WRAPPERS:
+        want = {k: calls if (w, k) in ran else 0
+                for k in ops.WRAPPER_KERNELS[w]}
+        check(device[w] == want,
+              f"{tag}: {w} launches on the card {device[w]} != {want} "
+              f"(cycles run + warm-up)")
+        rec = {k: 2 * grid.superstep * captures if (w, k) in ran else 0
+               for k in ops.WRAPPER_KERNELS[w]}
+        check(host[w] == rec,
+              f"{tag}: {w} host launches {host[w]} != {rec} (a warm-up and "
+              f"a recording of each capture)")
     return calls
 
 
@@ -911,17 +919,20 @@ def phase_fast_path(net, device, impl, kernel):
           f"occupancy_peak {grid.occupancy_peak}, escalations "
           f"{grid.escalations}")
     probe.check_lanes(grid, impl)
+    # the fused step's record gathers launch as often as its arbitration
     launches = check_counts(impl, "cycle_core", kernel, grid, cycles,
-                            device, host)
+                            device, host, STEP_GATHERS.get(impl, ()))
     print(f"[{impl}] wall {wall:.3f} s ({runs} run(s)): "
           f"{cycles * runs / wall:.2f} cycles/s, "
           f"{lanes * cycles * runs / wall:.2f} lane-cycles/s; "
           f"{graph_line(grid)}; cycle_core launches on the card "
           f"{device['cycle_core']}, from the host {host['cycle_core']}; "
+          f"head_records launches on the card {device['head_records']}; "
           f"max_memory_allocated since the main path began "
           f"{torch.cuda.max_memory_allocated()} bytes")
     return dict(launches=launches, launches_by_kernel=device["cycle_core"],
                 host_launches_by_kernel=host["cycle_core"],
+                head_records=device["head_records"],
                 cycles_per_s=cycles * runs / wall,
                 run_cycles_per_s=cycles * runs / grid.wall_s), grid
 
@@ -993,6 +1004,70 @@ def phase_profile(net, device, impl, per_call, cycles=20):
     check(n == cycles * per_call, f"{impl}: {n} grant / cycle_core kernels "
                                   f"in {cycles} calls, not {per_call} a "
                                   f"call")
+
+
+# the benchmark's radix-16 switch-less network at 24 lanes: lanes B,
+# channels E, requesting channels E_req, VCs NV, buffer slots S
+HEAD_SHAPE = (24, 30_176, 24_928, 8, 8)
+
+
+def head_records_bytes(B, rows, E) -> tuple[int, int]:
+    """Bytes the two gathers must move (dense, picked): each 32-byte
+    record read and written once, with its int32 head slot (dense: B x
+    rows heads) or pick (picked: B x E channels)."""
+    return B * rows * (32 + 32 + 4), B * E * (4 + 32 + 32)
+
+
+def phase_head_records_timing(device):
+    """The fused step's record gathers alone at `HEAD_SHAPE`: both forms
+    bit for bit against the `take` / `lane_take` expressions they replace
+    (run on the card), then each timed (back-to-back calls, CUDA events)
+    beside that expression and against its byte bound; `ms`, `plain_ms`
+    and `bound_ms` are the dense form's, the step's larger gather."""
+    import torch
+    from repro_torch.core.engine.state import with_sink_row
+    from repro_torch.kernels.netsim import (head_records_dense,
+                                           head_records_dense_ref,
+                                           head_records_picked,
+                                           head_records_picked_ref)
+    B, E, ER, NV, S = HEAD_SHAPE
+    rows = ER * NV
+    g = torch.Generator(device=device).manual_seed(0)
+    i32 = torch.iinfo(torch.int32)
+    store = with_sink_row(torch.randint(
+        i32.min, i32.max, (B, E + 1, NV, S, 8), dtype=torch.int32,
+        device=device, generator=g).narrow(1, 0, E))
+    b_head = torch.randint(0, S, (B, E, NV), dtype=torch.int32,
+                           device=device, generator=g)
+    idx = torch.randint(0, rows, (B, E), dtype=torch.int32, device=device,
+                        generator=g)
+    head = head_records_dense(store, b_head, ER)
+    check(torch.equal(head, head_records_dense_ref(store, b_head, ER))
+          and torch.equal(head_records_picked(head, idx),
+                          head_records_picked_ref(head, idx)),
+          "head_records != the take expressions it replaces")
+    t = dict(
+        dense_ms=cuda_ms(lambda: head_records_dense(store, b_head, ER), 50),
+        dense_take_ms=cuda_ms(
+            lambda: head_records_dense_ref(store, b_head, ER), 20),
+        picked_ms=cuda_ms(lambda: head_records_picked(head, idx), 200),
+        picked_take_ms=cuda_ms(lambda: head_records_picked_ref(head, idx),
+                               50))
+    dense_b, picked_b = head_records_bytes(B, rows, E)
+    t.update(dense_bound_ms=dense_b / H100_BYTES_PER_S * 1e3,
+             picked_bound_ms=picked_b / H100_BYTES_PER_S * 1e3)
+    print(f"[head_records] shapes B={B} E={E} E_req={ER} NV={NV} S={S}: "
+          f"dense kernel {t['dense_ms'] * 1e3:.2f} us/launch, take "
+          f"{t['dense_take_ms'] * 1e3:.2f} us, bound "
+          f"{t['dense_bound_ms'] * 1e3:.2f} us ({dense_b} bytes at 3.35 "
+          f"TB/s, {100 * t['dense_bound_ms'] / t['dense_ms']:.1f} % of it); "
+          f"picked kernel {t['picked_ms'] * 1e3:.2f} us/launch, lane_take "
+          f"{t['picked_take_ms'] * 1e3:.2f} us, bound "
+          f"{t['picked_bound_ms'] * 1e3:.2f} us ({picked_b} bytes, "
+          f"{100 * t['picked_bound_ms'] / t['picked_ms']:.1f} %); both == "
+          f"the take expressions")
+    return dict(t, ms=t["dense_ms"], plain_ms=t["dense_take_ms"],
+                bound_ms=t["dense_bound_ms"])
 
 
 def phase_profile_graph(net, device, impl, K, cycles=40):
@@ -2437,6 +2512,9 @@ ANALYSIS_PASSES = ("spec", "compile", "capacity", "step", "serve", "lint")
 # the kernel each step's arbitration runs on the card: (wrapper, kernel)
 STEP_KERNEL = {"jnp": ("grant", "coop"), "fused": ("cycle_core", "coop"),
                "compact": ("cycle_core", "three_pass")}
+# and the record gathers each step launches a cycle: (wrapper, kernel)
+STEP_GATHERS = {"fused": (("head_records", "dense"),
+                          ("head_records", "picked"))}
 
 
 def step_cells_match_cpu(device):
@@ -2467,11 +2545,12 @@ def step_cells_match_cpu(device):
                                             cycles=cycles)
                     ran = {w: {k: d1[w][k] - d0[w][k] for k in d1[w]}
                            for w in d1}
-                    want_ran = {w: {k: cycles if (w, k) == (wrapper, kernel)
-                                    else 0 for k in ran[w]} for w in ran}
+                    once = {(wrapper, kernel), *STEP_GATHERS.get(impl, ())}
+                    want_ran = {w: {k: cycles if (w, k) in once else 0
+                                    for k in ran[w]} for w in ran}
                     check(ran == want_ran,
                           f"{tag}: launches on the card {ran} != one of "
-                          f"{wrapper} {kernel} a cycle")
+                          f"each of {sorted(once)} a cycle")
                     want = graphs._leaves(cpu["out"])
                     got = graphs._leaves(card["out"])
                     check(got.keys() == want.keys(),
@@ -2519,7 +2598,8 @@ def phase_analysis(device, fig11_spec, fig11_captures, serve_captures):
           f"{timing}")
     n = len(steppass.VC_MODES) * len(steppass.FAULT_KINDS)
     want = {"grant": {"coop": n, "three_pass": 0},
-            "cycle_core": {"coop": n, "three_pass": n}}
+            "cycle_core": {"coop": n, "three_pass": n},
+            "head_records": {"dense": n, "picked": n}}
     check(dev == want and host == want,
           f"analysis step pass launches on the card {dev}, host {host} != "
           f"{want}")
@@ -3640,6 +3720,8 @@ def main(argv=None):
         cycle_err = max(cycle_err, err)
         cycle_t[impl] = phase_cycle_core_timing(impl, cargs, ckw)
         del cargs, ckw
+    head_t = phase_head_records_timing(device)
+    torch.cuda.empty_cache()
     grant_run, oracle = phase_main_path(net, device)
     grids, cycle_runs = {}, {}
     for impl in FAST_STEPS:
@@ -3747,8 +3829,23 @@ def main(argv=None):
                  placement_channels=placement["channels"]["launches"],
                  placement_exp=placement["exp"],
                  placement_serve=placement["serve"], **closing)
+    # the fused step's record gathers (the reference's `b_pkt[...]` and
+    # `head[bclip]`, XLA gathers): launches of phase 4's fused run (none
+    # in the compact run), the dense form's time beside `take`'s
+    head_entry = kernel_entry(
+        "netsim.head_records",
+        "src/repro_torch/kernels/netsim/csrc/head_records.cu",
+        "src/repro/core/engine/fused.py:556",
+        sum(sum(r["head_records"].values()) for r in cycle_runs.values()),
+        0, head_t)
+    head_entry["launches_by_kernel"] = {
+        form: sum(r["head_records"][form] for r in cycle_runs.values())
+        for form in ("dense", "picked")}
+    head_entry.update({k: head_t[k] for k in (
+        "picked_ms", "picked_take_ms", "picked_bound_ms")})
     for entry, wrapper in ((grant_entry, "grant"),
-                           (cycle_entry, "cycle_core")):
+                           (cycle_entry, "cycle_core"),
+                           (head_entry, "head_records")):
         entry["by_path"] = {"main": dict(
             launches=entry["launches"],
             launches_by_kernel=entry["launches_by_kernel"])}
@@ -3818,6 +3915,7 @@ def main(argv=None):
     print(json.dumps({"kernels": [
         grant_entry,
         cycle_entry,
+        head_entry,
         fa_entry,
         ssd_entry,
         rglru_entry]}))

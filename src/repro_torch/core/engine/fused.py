@@ -19,7 +19,11 @@ that `kernels.netsim.ops.cycle_core` returns: the hand-written CUDA
 kernel on a CUDA device, its plain PyTorch version on the CPU, whatever
 `cfg.grant_impl` names.  Its 64-bit key orders (itime, priority) for any
 itime, so the port needs no int32-overflow fallback; `grant_form` still
-reports the form the reference would compile.
+reports the form the reference would compile.  The dense step gathers
+its buffer-head records and its winners' records with
+`kernels.netsim.ops.head_records_dense` and `head_records_picked` (on a
+CUDA device one thread a 32-byte record, where aten's gather runs a
+block a row).
 
 The compact step first compacts the live rows (non-empty (channel, VC)
 buffers, then non-empty source queues, in the oracle's row order) into an
@@ -486,8 +490,6 @@ def _make_unsharded(net, cfg, pattern, inject_mask, consts, route_kernel):
     tb = _Tables(consts)
     dev = tb.ch_dst.device
     cur_rows = tb.ch_dst[:ER].repeat_interleave(NV)
-    e_idx = torch.arange(ER, device=dev).view(1, ER, 1)
-    v_idx = torch.arange(NV, device=dev).view(1, 1, NV)
     t_idx = torch.arange(T, device=dev)
 
     def step(state, t_key_rate_fl):
@@ -501,11 +503,10 @@ def _make_unsharded(net, cfg, pattern, inject_mask, consts, route_kernel):
             B = state.b_head.shape[0]
 
             # request rows in the oracle's order ([:ER]*NV buffer heads, then
-            # T source queues); the row index IS the oracle's tie-break
-            lane3 = torch.arange(B, device=dev).view(B, 1, 1)
-            head = take(with_sink_row(state.b_pkt), lane3, e_idx, v_idx,
-                        state.b_head[:, :ER], clamp=False).reshape(
-                            B, ER * NV, -1)
+            # T source queues); the row index IS the oracle's tie-break.
+            # The head records, whole, by the hand-written gather
+            head = netsim_ops.head_records_dense(
+                with_sink_row(state.b_pkt), state.b_head, ER)
             r_valid = ((state.b_count[:, :ER] > 0).reshape(B, -1)
                        & (head[..., F_READY] <= t))
             if cached:
@@ -515,7 +516,8 @@ def _make_unsharded(net, cfg, pattern, inject_mask, consts, route_kernel):
                 out_b, cls_b, meta2_b = route_kernel(
                     fl, cur_rows.expand(B, -1), head[..., F_DEST],
                     head[..., F_MIS], head[..., F_META])
-            sq = take(state.s_pkt, lane3[..., 0], t_idx, state.s_head,
+            lane = torch.arange(B, device=dev).view(B, 1)
+            sq = take(state.s_pkt, lane, t_idx, state.s_head,
                       clamp=False)                               # [B, T, 3]
             out = torch.cat([out_b, tb.inject_ch.expand(B, T)], 1).to(
                 torch.int32)
@@ -539,7 +541,7 @@ def _make_unsharded(net, cfg, pattern, inject_mask, consts, route_kernel):
         with span("step.commit"):
             is_buf = wprio < ER * NV
             bclip = wprio.clamp(0, ER * NV - 1)
-            wb = lane_take(head, bclip)
+            wb = netsim_ops.head_records_picked(head, bclip)
             ws = lane_take(sq, (wprio - ER * NV).clamp(0, T - 1))
             if cached:
                 wmeta, wcls = wb[..., F_META2], wb[..., F_CLS]

@@ -28,23 +28,34 @@ host where a wrapper launches (`launches`, `launches_by_kernel`; a launch
 recorded into a CUDA graph counts once, at its recording), and on the
 device by the kernel itself (`device_launches`), which counts every
 replay of a graph too.
+
+`head_records_dense` and `head_records_picked` (``csrc/head_records.cu``)
+gather the fused step's 32-byte buffer records, one thread a record:
+every buffer head, and one record a channel by index.  Their launches
+are counted as the arbitration wrappers' are, under the one wrapper name
+`head_records` (its "kernels" the two forms, "dense" and "picked").
 """
 from __future__ import annotations
 
 import ctypes
 from collections import OrderedDict
 from pathlib import Path
+from types import SimpleNamespace
 
 import torch
 
 from ..build import load_library
-from .ref import check_r2, cycle_core_ref, grant_ref
+from .ref import (check_r2, cycle_core_ref, grant_ref,
+                  head_records_dense_ref, head_records_picked_ref)
 
 LIBRARY = "netsim"
 SOURCES = [Path(__file__).parent / "csrc" / name
            for name in ("grant.cu", "cycle_core.cu", "grant_coop.cu",
-                        "cycle_core_coop.cu")]
+                        "cycle_core_coop.cu", "head_records.cu")]
 KERNELS = ("coop", "three_pass")
+HEAD_FORMS = ("dense", "picked")
+# int32 fields a buffer record: the state's NUM_FUSED_FIELDS
+RECORD_FIELDS = 8
 # the three-pass kernels' grid puts the lanes on its y dimension
 MAX_LANES = 65_535
 _P, _L, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
@@ -57,13 +68,21 @@ _ARGTYPES = {
                           _I, _I, _I, _I, _P, _P],
     "netsim_cycle_core_coop": [_P, _P, _P, _P, _L, _P, _P, _P, _P, _I, _I,
                                _I, _P, _P],
+    "netsim_head_records_dense": [_P, _L, _L, _L, _L, _P, _L, _L, _L, _P,
+                                  _I, _I, _I, _I, _P, _P],
+    "netsim_head_records_picked": [_P, _L, _L, _I, _P, _L, _L, _P, _I, _I,
+                                   _P, _P],
 }
 # library name -> {function name: the bound ctypes function}, bound once
 _BOUND: dict = {}
 # (device, stream, B, E) -> the coop kernel's scratch, kept between calls
 _SCRATCH: OrderedDict = OrderedDict()
 _SCRATCH_KEPT = 8
-WRAPPERS = ("grant", "cycle_core")
+WRAPPERS = ("grant", "cycle_core", "head_records")
+# wrapper -> the kernels it launches, in the order of its device counts
+WRAPPER_KERNELS = {"grant": KERNELS, "cycle_core": KERNELS,
+                   "head_records": HEAD_FORMS}
+_WIDTH = max(map(len, WRAPPER_KERNELS.values()))
 # device -> int64 [wrapper, kernel]: the launches the kernels counted
 _DEVICE_LAUNCHES: dict = {}
 
@@ -127,10 +146,11 @@ def _launch_slot(device, wrapper, kernel) -> int:
             raise RuntimeError("netsim: call a kernel once outside a CUDA "
                                "graph capture before capturing it")
         counts = _DEVICE_LAUNCHES[device] = torch.zeros(
-            (len(WRAPPERS), len(KERNELS)), dtype=torch.int64, device=device)
+            (len(WRAPPERS), _WIDTH), dtype=torch.int64, device=device)
     # int64 [wrapper, kernel], row-major
-    return counts.data_ptr() + 8 * (WRAPPERS.index(wrapper) * len(KERNELS)
-                                    + KERNELS.index(kernel))
+    slot = WRAPPERS.index(wrapper) * _WIDTH \
+        + WRAPPER_KERNELS[wrapper].index(kernel)
+    return counts.data_ptr() + 8 * slot
 
 
 def device_launches(device=None) -> dict:
@@ -141,9 +161,10 @@ def device_launches(device=None) -> dict:
     device = torch.device("cuda", torch.cuda.current_device()) \
         if device is None else torch.device(device)
     counts = _DEVICE_LAUNCHES.get(device)
-    rows = ([[0] * len(KERNELS)] * len(WRAPPERS) if counts is None
+    rows = ([[0] * _WIDTH] * len(WRAPPERS) if counts is None
             else counts.cpu().tolist())
-    return {w: dict(zip(KERNELS, row)) for w, row in zip(WRAPPERS, rows)}
+    return {w: dict(zip(WRAPPER_KERNELS[w], row))
+            for w, row in zip(WRAPPERS, rows)}
 
 
 def _check(kernel, name, x, dtype, shape):
@@ -354,3 +375,112 @@ def cycle_core(out, itime, ok, ch_ok, *, r2: int, prio=None,
 
 cycle_core.launches = 0
 cycle_core.launches_by_kernel = dict.fromkeys(KERNELS, 0)
+
+
+def _record_table(name, x, nd):
+    """`x` checked as a table of 32-byte records the kernel may read with
+    16-byte loads: int32, `nd` dims, the record's fields contiguous, every
+    other stride a multiple of 4 fields, the base 16-byte aligned."""
+    if x.dtype != torch.int32 or x.dim() != nd:
+        raise ValueError(f"head_records: {name} must be int32 with {nd} "
+                         f"dims, got {x.dtype} {tuple(x.shape)}")
+    if x.shape[-1] * x.element_size() != 4 * RECORD_FIELDS \
+            or x.stride(-1) != 1:
+        raise ValueError(f"head_records: {name}'s records must be "
+                         f"{RECORD_FIELDS} contiguous int32 (32 bytes), got "
+                         f"{x.shape[-1]} fields at stride {x.stride(-1)}")
+    if x.data_ptr() % 16 or any(st % 4 for st in x.stride()[:-1]):
+        raise ValueError(f"head_records: {name}'s records must be 16-byte "
+                         f"aligned (base {x.data_ptr():#x}, strides "
+                         f"{x.stride()})")
+
+
+def _record_index(name, index, B, nd):
+    if index.dtype != torch.int32 or index.dim() != nd \
+            or index.shape[0] != B:
+        raise ValueError(f"head_records: {name} must be int32 with {nd} "
+                         f"dims and {B} lanes, got {index.dtype} "
+                         f"{tuple(index.shape)}")
+
+
+def _launch_records(form, args, out):
+    """Launch the `form` gather of `args` into `out` [B, rows, 8] on the
+    current stream and count it: `head_records.launches` and
+    `head_records.launches_by_kernel[form]` on the host, its
+    `device_launches` slot on the device."""
+    total = out.shape[0] * out.shape[1]
+    if total >= 2**31:
+        raise ValueError(f"head_records: {total} records exceed the "
+                         f"kernel's 32-bit record index")
+    if total == 0:
+        return out
+    rc = _fn(f"netsim_head_records_{form}")(
+        *args, total, _launch_slot(out.device, "head_records", form),
+        _stream())
+    if rc != 0:
+        raise RuntimeError(f"netsim head_records {form} kernel launch "
+                           f"failed: CUDA error {rc}")
+    head_records.launches += 1
+    head_records.launches_by_kernel[form] += 1
+    return out
+
+
+def head_records_dense(store, b_head, rows: int):
+    """Every buffer head of the first `rows` channels: the same arguments
+    and result as `ref.head_records_dense_ref` (``store [B, E', NV, S,
+    8]`` at the int32 ``b_head [B, E'', NV]``, into ``[B, rows * NV,
+    8]``).  Records are int32, 32 bytes, their bases 16-byte aligned; a
+    CUDA call raises ValueError otherwise."""
+    device = _one_device("head_records", (store, b_head))
+    if device.type == "cpu":
+        return head_records_dense_ref(store, b_head, rows)
+    if not _on_current_device(device):
+        with torch.cuda.device(device):
+            return head_records_dense(store, b_head, rows)
+    _record_table("store", store, 5)
+    B, Es, NV, S, _ = store.shape
+    _record_index("b_head", b_head, B, 3)
+    rows = int(rows)
+    if b_head.shape[2] != NV or not 0 <= rows <= min(Es, b_head.shape[1]) \
+            or S == 0:
+        raise ValueError(f"head_records: b_head {tuple(b_head.shape)} and "
+                         f"{rows} rows do not fit the store "
+                         f"{tuple(store.shape)}")
+    out = torch.empty((B, rows * NV, RECORD_FIELDS), dtype=torch.int32,
+                      device=device)
+    return _launch_records(
+        "dense", (store.data_ptr(), *store.stride()[:4], b_head.data_ptr(),
+                  *b_head.stride(), out.data_ptr(), rows, NV, S), out)
+
+
+def head_records_picked(head, idx):
+    """The records ``head[b, idx[b, c]]``: the same arguments and result
+    as `ref.head_records_picked_ref` (``head [B, R, 8]`` at the int32
+    ``idx [B, E]``, wrapped once and clamped, into ``[B, E, 8]``).
+    Records are int32, 32 bytes, their bases 16-byte aligned; a CUDA call
+    raises ValueError otherwise."""
+    device = _one_device("head_records", (head, idx))
+    if device.type == "cpu":
+        return head_records_picked_ref(head, idx)
+    if not _on_current_device(device):
+        with torch.cuda.device(device):
+            return head_records_picked(head, idx)
+    _record_table("head", head, 3)
+    B, R, _ = head.shape
+    _record_index("idx", idx, B, 2)
+    if R == 0:
+        raise ValueError(f"head_records: picks {tuple(idx.shape)} do not "
+                         f"fit the head {tuple(head.shape)}")
+    out = torch.empty((B, idx.shape[1], RECORD_FIELDS), dtype=torch.int32,
+                      device=device)
+    return _launch_records(
+        "picked", (head.data_ptr(), head.stride(0), head.stride(1), R,
+                   idx.data_ptr(), *idx.stride(), out.data_ptr(),
+                   idx.shape[1]), out)
+
+
+# the host counts of both gathers, by form, under the wrapper name that
+# `WRAPPERS` and `device_launches` give them
+head_records = SimpleNamespace(launches=0,
+                               launches_by_kernel=dict.fromkeys(HEAD_FORMS,
+                                                                0))

@@ -8,13 +8,14 @@ reference's `cycle_core` (`repro.kernels.netsim.ops`), which has no
 Both take raw tensors with an optional leading lane dimension; they are
 the CPU path of `ops` and the references the CUDA kernels are held to.
 Integer keys and exact min/tie-break semantics make "bit-identical"
-well-defined.
+well-defined.  `head_records_dense_ref` and `head_records_picked_ref` are
+the fused step's record gathers as `take` / `lane_take` expressions.
 """
 from __future__ import annotations
 
 import torch
 
-from ...tensors import lane_take
+from ...tensors import lane_take, take
 
 INF32 = 2**31 - 1
 INF64 = 2**63 - 1
@@ -121,3 +122,30 @@ def cycle_core_ref(out, itime, ok, ch_ok, *, r2: int, prio=None):
     wprio = torch.where(won, m & 0xFFFFFFFF, 0).to(torch.int32)
     win = ok & (lane_take(m, out) == key)
     return won, wprio, win
+
+
+def head_records_dense_ref(store, b_head, rows: int):
+    """The buffer-head record of each (lane, channel, VC) of the first
+    `rows` channels: ``head[b, e * NV + v] = store[b, e, v, b_head[b, e,
+    v]]``.
+
+    store   [B, E', NV, S, F]  the buffered records (E' >= rows; the
+                               state's ``b_pkt`` with its spare row)
+    b_head  [B, E'', NV] int   the head slot of each buffer, in [0, S)
+                               (E'' >= rows)
+
+    Returns head [B, rows * NV, F]."""
+    B, NV = store.shape[0], store.shape[2]
+    dev = store.device
+    lane = torch.arange(B, device=dev).view(B, 1, 1)
+    e = torch.arange(rows, device=dev).view(1, rows, 1)
+    v = torch.arange(NV, device=dev).view(1, 1, NV)
+    return take(store, lane, e, v, b_head[:, :rows], clamp=False).reshape(
+        B, rows * NV, -1)
+
+
+def head_records_picked_ref(head, idx):
+    """The records ``head[b, idx[b, c]]`` (head [B, R, F], idx [B, E]),
+    with the reference's gather rule: a negative index wraps once, then
+    is clamped to [0, R - 1].  Returns [B, E, F]."""
+    return lane_take(head, idx)

@@ -519,7 +519,8 @@ def test_step_pass_on_the_card_matches_the_cpu():
     n = len(PST.VC_MODES) * len(PST.FAULT_KINDS)
     got = {w: {k: d1[w][k] - d0[w][k] for k in d1[w]} for w in d1}
     assert got == {"grant": {"coop": n, "three_pass": 0},
-                   "cycle_core": {"coop": n, "three_pass": n}}
+                   "cycle_core": {"coop": n, "three_pass": n},
+                   "head_records": {"dense": n, "picked": n}}
 
 
 @pytest.mark.cuda
