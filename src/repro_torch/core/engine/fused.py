@@ -757,7 +757,8 @@ class ShardedStep:
         dest = tb.pattern(k_dest, t).to(torch.int32)
         gen = gen & (dest != tb.terms)
         gen = gen & alive & lane_take(alive, dest)
-        mis = tb.gen_mis(k_mis, dest, state.b_count, fl)
+        with span("route.misroute"):
+            mis = tb.gen_mis(k_mis, dest, state.b_count, fl)
         space = state.s_count[:, :T] < Q
         push = gen & space
         slot = (state.s_head[:, :T] + state.s_count[:, :T]) % Q

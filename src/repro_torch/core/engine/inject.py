@@ -1,6 +1,7 @@
 """Injection phase: Bernoulli packet generation, the misroute decision
-(VAL / restricted-VAL / UGAL-G with congestion sensors), and the source-queue
-push.  Also accounts generated/dropped packets.
+(VAL / restricted-VAL / UGAL-G with congestion sensors; the span
+`route.misroute`, in every route mode), and the source-queue push.  Also
+accounts generated/dropped packets.
 
 Port of `repro.core.engine.inject`, lane-batched: keys are ``[B, 2]``,
 rates ``[B]``, and every per-terminal tensor is ``[B, T]``.  The draws
@@ -14,6 +15,7 @@ import numpy as np
 import torch
 
 from ... import random as jr
+from ...spans import span
 from ...tensors import as_tensor, flat_index, lane_take, take, take_flat
 from ..topology import MESH, FaultSet, Network
 
@@ -148,7 +150,8 @@ def make_inject_fn(net: Network, cfg, consts, pattern, inject_mask=None):
         dest = pattern(k_dest, t).to(torch.int32)
         gen = gen & (dest != terms)         # fixed points are silent
         gen = gen & alive & lane_take(alive, dest)  # dead endpoints too
-        mis = gen_mis(k_mis, dest, state.b_count, fl)
+        with span("route.misroute"):
+            mis = gen_mis(k_mis, dest, state.b_count, fl)
         space = state.s_count < Q
         push = gen & space
         slot = (state.s_head + state.s_count) % Q

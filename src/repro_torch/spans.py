@@ -30,10 +30,14 @@ dispatch or window, `engine.step._key_chain_seq`), `graph.copy` (a
 `CycleGraph`'s inputs copied in and its results copied out),
 `graph.replays` (a run's or window's replay loop) and the cycle step's
 phases `step.inject`, `step.requests`, `step.grant`, `step.commit`
-(`engine.fused`; their Python runs eagerly and at a capture, never at a
-replay).  On the card no span encloses another, so a trace names each
-idle gap by the one range that overlaps it; on the CPU the graph loop
-runs the step eagerly inside `graph.replays`.
+(`engine.fused`), and `route.misroute` (the misroute decision of
+`engine.inject`: Valiant's candidate draw, the fault mask, UGAL's sensor
+gathers and the choice), which lies inside `step.inject` in the steps
+that have phases; the step's spans run their Python eagerly and at a
+capture, never at a replay.  On the card no other span encloses
+another, so a trace names each idle gap by the one range that overlaps
+it; on the CPU the graph loop runs the step eagerly inside
+`graph.replays`.
 """
 from __future__ import annotations
 

@@ -3,9 +3,10 @@
 A span counts and adds its host seconds and enters no profiler range
 while no profiler records; under `torch.profiler` one eager cycle of the
 fused and of the compact step yields the four `step.*` ranges, with every
-aten op of the step under exactly one of them; a dispatch ticks
-`sweep.key_chain` once and a window of a session once; and the rows of
-a sweep are the same with a profiler recording.
+aten op of the step under exactly one of them, and one `route.misroute`
+range inside `step.inject`; a dispatch ticks `sweep.key_chain` once and
+a window of a session once; and the rows of a sweep are the same with a
+profiler recording.
 
 The file imports neither jax nor the reference package.
 """
@@ -76,14 +77,18 @@ def test_span_is_a_profiler_range_while_one_records():
     assert kinds["test.recorded"] is False
 
 
-def _phase_of(event) -> list:
-    """The `step.*` ranges among an event's ancestors."""
+def _ancestors(event) -> list:
+    """The names of an event's enclosing ranges, innermost first."""
     out, e = [], event.cpu_parent
     while e is not None:
-        if e.name in PHASES:
-            out.append(e.name)
+        out.append(e.name)
         e = e.cpu_parent
     return out
+
+
+def _phase_of(event) -> list:
+    """The `step.*` ranges among an event's ancestors."""
+    return [name for name in _ancestors(event) if name in PHASES]
 
 
 @pytest.mark.parametrize("impl", ["fused", "compact"])
@@ -105,6 +110,30 @@ def test_each_aten_op_of_a_cycle_lies_under_one_phase(net, impl):
         [(e.name, _phase_of(e)) for e in ops if len(_phase_of(e)) != 1]
     # every phase issues work of its own
     assert {_phase_of(e)[0] for e in ops} == set(PHASES)
+
+
+@pytest.mark.parametrize("route_mode", ["min", "ugal"])
+@pytest.mark.parametrize("impl", ["fused", "compact"])
+def test_misroute_opens_once_a_cycle_inside_inject(net, impl, route_mode):
+    cfg = dataclasses.replace(CFG, step_impl=impl, route_mode=route_mode)
+    sweep = BatchedSweep(net, cfg, traffic.worst_case(net), device="cpu",
+                         loop="eager")
+    session = sweep.start_lanes(LANES, window=CFG.warmup)
+    session.advance()
+    ch = session.chunks[0]
+    subs = _key_chain(session.keys, 2)
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        for i, sub in enumerate(subs):
+            ch.state, _ = ch.step(ch.state, (session.cycle + i, sub,
+                                             ch.rates, ch.lanes))
+    events = prof.events()
+    ranges = [e for e in events if e.name == "route.misroute"]
+    assert len(ranges) == len(subs)
+    assert all(_ancestors(e).count("step.inject") == 1 for e in ranges)
+    under = [e for e in events if e.name.startswith("aten::")
+             and "route.misroute" in _ancestors(e)]
+    assert under and all("step.inject" in _ancestors(e) for e in under)
 
 
 def test_dispatch_and_window_each_tick_the_key_chain_once(net):
