@@ -10,8 +10,11 @@ Phases (any failure ends the run with a nonzero exit):
    the build of every CUDA kernel of the path from this checkout's sources,
    with HGMMA instructions in the flash and the SSD libraries' SASS and the
    atomic opcodes of each netsim kernel;
-2. the PRNG on the card: Threefry-2x32 known answers, and split / uniform /
-   randint / bernoulli on CUDA equal to the same calls on the CPU;
+2. the PRNG on the card: Threefry-2x32 known answers, and split / bits /
+   uniform / randint / bernoulli on CUDA keys (the `threefry` kernel, one
+   launch a draw, counted on the device), from one key, 4 lanes and the
+   strided views of a split, equal to the same calls on the CPU (the
+   plain versions);
 3. each kernel against its plain PyTorch version on the card, bit for bit,
    and its time at the main path's shapes; the netsim wrappers' two
    kernels each (the one-launch cooperative kernel, row-index priority
@@ -28,6 +31,12 @@ Phases (any failure ends the run with a nonzero exit):
      the benchmark's radix-16 switch-less shape (24 lanes), bit for bit
      against the `take` expressions they replace, and timed beside them
      and against their byte bounds (a `[head_records]` line);
+   - threefry: each draw of the PRNG at the benchmark's radix-16
+     switch-less shape (24 lanes x 5,248 terminals), bit for bit against
+     the plain version on the card, timed (a launch eager and inside a
+     CUDA graph) beside the plain version in a graph and against its
+     bound, the larger of its bytes at 3.35 TB/s and its int32 operations
+     at the card's rate (a `[threefry]` line);
 4. the main path on the paper's radix-16 evaluation network (g = 41:
    1,312 chips, 30,176 channels), 2 rates x 2 seeds = 4 lanes through
    `Simulator.sweep_grid`, its cycles replayed as captured CUDA graphs,
@@ -44,7 +53,9 @@ Phases (any failure ends the run with a nonzero exit):
    three-pass kernel for the compact step's explicit priority; the
    wrappers' host counts tick only at each capture's warm-up and
    recording; the fused step's record gathers, `head_records`, one dense
-   and one picked launch a cycle), exact packet conservation on every
+   and one picked launch a cycle; the PRNG's draws, `threefry`, one
+   split, one uniform and one randint launch a cycle in every step),
+   exact packet conservation on every
    lane, and the memory the process holds with the three steps' graphs
    cached;
 5. the port on the card against the port on the CPU on a small network,
@@ -208,7 +219,9 @@ Phases (any failure ends the run with a nonzero exit):
    fused step channel-sharded, REPRO_CHANNEL_SHARDS=2 ("lanes:1,shards:2",
    the eager loop; `SHARDED_CUT` cycles, printed), equal to the unsharded
    fused run on the same lanes, with its grant form, pad fraction,
-   cycles/s beside the captured run's, and peak memory; (c) a two-cell
+   cycles/s beside the captured run's, and peak memory; no arbitration or
+   gather kernel runs, and each shard launches the cycle's three draws;
+   (c) a two-cell
    spec round-robined (each cell pinned to its logical device) and
    smoke_faults spread over both ("lanes:2") through the runner, and a
    `SimService` with smoke and smoke_faults whose two buckets land on the
@@ -255,6 +268,10 @@ sys.path.insert(0, str(ROOT / "src"))
 
 H100_BYTES_PER_S = 3.35e12      # HBM3 of the H100 SXM (NVIDIA data sheet)
 H100_BF16_OPS_PER_S = 989.4e12  # dense bf16 tensor cores (NVIDIA data sheet)
+# 32-bit integer add, logic and shift: 64 a clock on each of the 132 SMs
+# at the 1.98 GHz boost clock (Hopper white paper; CUDA's throughput table
+# for compute capability 9.0)
+H100_INT32_OPS_PER_S = 132 * 64 * 1.98e9
 FULL_RATES, FULL_SEEDS = (0.1, 0.4), (0, 1)
 FAST_RATES = (0.4, 1.0)
 FAST_STEPS = ("fused", "compact")
@@ -394,17 +411,30 @@ def phase_prng(device):
                                              device=device)
                                 for v in (*key, *count)))
         check(tuple(int(v) for v in got) == want, f"threefry KAT {key}")
+    from repro_torch.kernels.netsim import ops
     keys = torch.stack([jr.PRNGKey(s) for s in (0, 1, 2, 3)])
     draws = [lambda k: jr.split(k, 3),
+             lambda k: jr.random_bits(k, (5248,)),
              lambda k: jr.uniform(k, (5248,)),
              lambda k: jr.randint(k, (5248,), 0, 5247),
              lambda k: jr.randint(k, (5248,), 0, 41),
-             lambda k: jr.bernoulli(k, 0.5, (5248,))]
+             lambda k: jr.bernoulli(k, 0.5, (5248,)),
+             # the step's subkeys: strided views of a split
+             lambda k: jr.uniform(jr.split(k, 3)[..., 1, :], (5248,))]
+    d0 = ops.device_launches()["threefry"]
     for i, f in enumerate(draws):
-        a, b = f(keys.to(device)).cpu(), f(keys)
-        check(torch.equal(a, b), f"PRNG draw {i}: CUDA != CPU")
-    print("[prng] threefry known answers and split/uniform/randint/"
-          "bernoulli: CUDA == CPU, bit for bit")
+        for key in (keys, keys[0]):
+            a, b = f(key.to(device)).cpu(), f(key)
+            check(torch.equal(a, b), f"PRNG draw {i}: CUDA != CPU")
+    torch.cuda.synchronize()
+    d1 = ops.device_launches()["threefry"]
+    got = {k: d1[k] - d0[k] for k in d1}
+    want = dict(split=4, bits=2, uniform=4, randint=4, bernoulli=2)
+    check(got == want, f"PRNG draws launched {got} != {want}, one a draw")
+    print(f"[prng] threefry known answers (torch ops on the card) and "
+          f"split/bits/uniform/randint/bernoulli on the threefry kernel, "
+          f"one key and 4 lanes, strided subkeys: CUDA == CPU, bit for "
+          f"bit; launches on the card {got}")
 
 
 def _random_grant_inputs(rng, B, N, E, device):
@@ -825,15 +855,15 @@ def counted(run):
 def check_counts(tag, wrapper, kernel, grid, cycles, device, host,
                  gathers=()):
     """Every arbitration of the sweep ran on `kernel` of `wrapper`, and
-    every (wrapper, kernel) of `gathers` ran as often, as the kernels
-    counted it on the card: each cycle of each run plus each capture's
-    warm-up (`expected_calls`); nothing else on any wrapper.  The host
-    counts ticked where they launched: at each capture's warm-up and
-    recording, never at a replay."""
+    every (wrapper, kernel) of `gathers` and of `CYCLE_DRAWS` ran as
+    often, as the kernels counted it on the card: each cycle of each run
+    plus each capture's warm-up (`expected_calls`); nothing else on any
+    wrapper.  The host counts ticked where they launched: at each
+    capture's warm-up and recording, never at a replay."""
     from repro_torch.kernels.netsim import ops
     calls = expected_calls(grid, cycles)
     captures = grid.compile_count + grid.escalation_compiles
-    ran = {(wrapper, kernel), *gathers}
+    ran = {(wrapper, kernel), *gathers, *CYCLE_DRAWS}
     for w in ops.WRAPPERS:
         want = {k: calls if (w, k) in ran else 0
                 for k in ops.WRAPPER_KERNELS[w]}
@@ -892,6 +922,7 @@ def phase_main_path(net, device):
           f"{base})")
     return dict(launches=launches, launches_by_kernel=device["grant"],
                 host_launches_by_kernel=host["grant"],
+                threefry=device["threefry"],
                 cycles_per_s=cycles / wall,
                 run_cycles_per_s=cycles / grid.wall_s,
                 memory_before=base), grid
@@ -928,11 +959,13 @@ def phase_fast_path(net, device, impl, kernel):
           f"{graph_line(grid)}; cycle_core launches on the card "
           f"{device['cycle_core']}, from the host {host['cycle_core']}; "
           f"head_records launches on the card {device['head_records']}; "
+          f"threefry launches on the card {device['threefry']}; "
           f"max_memory_allocated since the main path began "
           f"{torch.cuda.max_memory_allocated()} bytes")
     return dict(launches=launches, launches_by_kernel=device["cycle_core"],
                 host_launches_by_kernel=host["cycle_core"],
                 head_records=device["head_records"],
+                threefry=device["threefry"],
                 cycles_per_s=cycles * runs / wall,
                 run_cycles_per_s=cycles * runs / grid.wall_s), grid
 
@@ -1068,6 +1101,88 @@ def phase_head_records_timing(device):
           f"the take expressions")
     return dict(t, ms=t["dense_ms"], plain_ms=t["dense_take_ms"],
                 bound_ms=t["dense_bound_ms"])
+
+
+# the benchmark's radix-16 switch-less cell: 24 lanes of 5,248 terminals
+THREEFRY_SHAPE = (24, 5_248)
+# int32 operations of one Threefry-2x32 hash as `threefry.cu` runs it:
+# the third key word (2), the first injection (2), 20 rounds of add,
+# rotate and xor (60), five injections of three adds (15)
+THREEFRY_HASH_OPS = 79
+
+
+def threefry_work(form, lanes, n) -> tuple[int, int]:
+    """(bytes, int32 operations) one draw of `form` must take: the lanes'
+    keys read and the output written once; a hash an element (a split
+    element's two words are one hash), plus the form's own operations
+    (bits: the xor; uniform: and the shift, or and subtraction; bernoulli:
+    and the compare; randint: two hashes and two xors an element, the
+    two subkeys' hashes once a lane, three remainders, a product and two
+    sums)."""
+    out = {"split": 16, "bits": 8, "uniform": 4, "randint": 4,
+           "bernoulli": 1}[form]
+    per = {"split": THREEFRY_HASH_OPS, "bits": THREEFRY_HASH_OPS + 1,
+           "uniform": THREEFRY_HASH_OPS + 4,
+           "bernoulli": THREEFRY_HASH_OPS + 5,
+           "randint": 2 * (THREEFRY_HASH_OPS + 1) + 6}[form]
+    lane_ops = 2 * THREEFRY_HASH_OPS if form == "randint" else 0
+    return lanes * (16 + n * out), lanes * (n * per + lane_ops)
+
+
+def phase_threefry_timing(device):
+    """The PRNG's draws alone at `THREEFRY_SHAPE`, from the strided
+    subkeys the step draws from: each form bit for bit against its plain
+    version on the card, then timed: a launch eager (back-to-back calls,
+    CUDA events) and inside a CUDA graph (as the main path runs it),
+    beside the plain version in a graph and against its bound (the
+    larger of bytes at 3.35 TB/s and int32 operations at the card's
+    rate).  `ms`, `plain_ms` and `bound_ms` are the randint form's, the
+    draw with the most work a cycle."""
+    import torch
+    from repro_torch import random as jr
+    from repro_torch.kernels.netsim import ref
+    B, T = THREEFRY_SHAPE
+    ks = jr.split(jr.split(jr.PRNGKey(2**31 + 11).to(device), B), 3)
+    key = ks[:, 0]
+    forms = {
+        "split": (lambda: jr.split(key, 3),
+                  lambda: ref.threefry_split_ref(key, 3), 3),
+        "bits": (lambda: jr.random_bits(key, (T,)),
+                 lambda: ref.threefry_bits_ref(key, (T,)), T),
+        "uniform": (lambda: jr.uniform(key, (T,)),
+                    lambda: ref.threefry_uniform_ref(key, (T,)), T),
+        "randint": (lambda: jr.randint(key, (T,), 0, T - 1),
+                    lambda: ref.threefry_randint_ref(key, (T,), 0, T - 1),
+                    T),
+        "bernoulli": (lambda: jr.bernoulli(key, 0.5, (T,)),
+                      lambda: ref.threefry_bernoulli_ref(key, 0.5, (T,)),
+                      T)}
+    out = {}
+    for form, (kernel, plain, n) in forms.items():
+        check(torch.equal(kernel(), plain()),
+              f"threefry {form} kernel != its plain version")
+        nbytes, ops_ = threefry_work(form, B, n)
+        by_bytes = nbytes / H100_BYTES_PER_S * 1e3
+        by_ops = ops_ / H100_INT32_OPS_PER_S * 1e3
+        out[form] = dict(ms=cuda_ms(kernel, 200), graph_ms=graph_ms(kernel),
+                         plain_graph_ms=graph_ms(plain, calls=4, reps=10),
+                         bound_ms=max(by_bytes, by_ops),
+                         bound_by="bytes" if by_bytes >= by_ops
+                         else "operations", bytes=nbytes, ops=ops_)
+    print(f"[threefry] shape {B} lanes x {T} elements (split: 3), keys the "
+          f"strided subkeys of a split; us a launch, eager / in a CUDA "
+          f"graph; the plain version in a graph; bound (bytes at 3.35 "
+          f"TB/s, int32 operations at {H100_INT32_OPS_PER_S / 1e12:.2f} "
+          f"T/s); all == the plain version: " + "; ".join(
+              f"{form} {t['ms'] * 1e3:.2f} / {t['graph_ms'] * 1e3:.2f}, "
+              f"plain {t['plain_graph_ms'] * 1e3:.2f}, bound "
+              f"{t['bound_ms'] * 1e3:.4f} ({t['bound_by']}: {t['bytes']} B, "
+              f"{t['ops']} ops; {100 * t['bound_ms'] / t['graph_ms']:.1f} %)"
+              for form, t in out.items()))
+    head = out["randint"]
+    return dict(ms=head["ms"], plain_ms=head["plain_graph_ms"],
+                bound_ms=head["bound_ms"], bound_by=head["bound_by"],
+                forms=out)
 
 
 def phase_profile_graph(net, device, impl, K, cycles=40):
@@ -2515,6 +2630,10 @@ STEP_KERNEL = {"jnp": ("grant", "coop"), "fused": ("cycle_core", "coop"),
 # and the record gathers each step launches a cycle: (wrapper, kernel)
 STEP_GATHERS = {"fused": (("head_records", "dense"),
                           ("head_records", "picked"))}
+# and the PRNG's draws every step launches a cycle under uniform traffic
+# and minimal routing: the cycle key's split, the coins, the destinations
+CYCLE_DRAWS = (("threefry", "split"), ("threefry", "uniform"),
+               ("threefry", "randint"))
 
 
 def step_cells_match_cpu(device):
@@ -2545,7 +2664,8 @@ def step_cells_match_cpu(device):
                                             cycles=cycles)
                     ran = {w: {k: d1[w][k] - d0[w][k] for k in d1[w]}
                            for w in d1}
-                    once = {(wrapper, kernel), *STEP_GATHERS.get(impl, ())}
+                    once = {(wrapper, kernel), *STEP_GATHERS.get(impl, ()),
+                            *CYCLE_DRAWS}
                     want_ran = {w: {k: cycles if (w, k) in once else 0
                                     for k in ran[w]} for w in ran}
                     check(ran == want_ran,
@@ -2599,7 +2719,9 @@ def phase_analysis(device, fig11_spec, fig11_captures, serve_captures):
     n = len(steppass.VC_MODES) * len(steppass.FAULT_KINDS)
     want = {"grant": {"coop": n, "three_pass": 0},
             "cycle_core": {"coop": n, "three_pass": n},
-            "head_records": {"dense": n, "picked": n}}
+            "head_records": {"dense": n, "picked": n},
+            "threefry": {"split": 3 * n, "bits": 0, "uniform": 3 * n,
+                         "randint": 3 * n, "bernoulli": 0}}
     check(dev == want and host == want,
           f"analysis step pass launches on the card {dev}, host {host} != "
           f"{want}")
@@ -3295,8 +3417,10 @@ def phase_channel_sharding(device, net):
     from repro_torch.core.engine.fused import fused_pad
     from repro_torch.core.engine.sweep import lane_mesh
     from repro_torch.core.simulator import SimConfig, Simulator
+    from repro_torch.kernels.netsim import ops
     cfg = SimConfig(**SHARDED_CUT, step_impl="fused")
     cycles = cfg.warmup + cfg.measure
+    shards = 2
     sim = Simulator(net, cfg, traffic.uniform(net), device=device)
     lanes = list(SHARDED_LANES)
     fresh_peak()
@@ -3304,7 +3428,7 @@ def phase_channel_sharding(device, net):
     single_peak = torch.cuda.max_memory_allocated()
     fresh_peak()
     with knobs(REPRO_HOST_DEVICES=PLACEMENT_DEVICES,
-               REPRO_CHANNEL_SHARDS=2):
+               REPRO_CHANNEL_SHARDS=shards):
         run, wall, dev, host = counted(lambda: sim._batched.run_lanes(lanes))
         peak = torch.cuda.max_memory_allocated()
         step = sim._batched._step_for(lane_mesh(2, device)[0], 2)
@@ -3324,11 +3448,14 @@ def phase_channel_sharding(device, net):
               f"placement (b): the channel-sharded run in the {name} form "
               "!= the unsharded fused run")
     # the sharded step's grant is the plain reduction (its minimum exists
-    # only after the shards' exchange): no netsim kernel runs
-    check(not any(n for d in (dev, dev2) for w in d.values()
-                  for n in w.values()),
+    # only after the shards' exchange): no arbitration or gather kernel
+    # runs; each shard draws the cycle's bits over all T terminals (the
+    # same draws), one threefry launch a draw
+    draws = {w: {k: shards * cycles if (w, k) in CYCLE_DRAWS else 0
+                 for k in ops.WRAPPER_KERNELS[w]} for w in ops.WRAPPERS}
+    check(dev == dev2 == draws,
           f"placement (b): netsim launches {dev}, {dev2} in the sharded "
-          "runs")
+          f"runs != {draws}")
     ch_pad, term_pad = fused_pad(net, 2)
     out = dict(cycles=cycles, grant_form=run.grant_form,
                pad_fraction=run.pad_fraction, ch_pad=ch_pad,
@@ -3721,6 +3848,7 @@ def main(argv=None):
         cycle_t[impl] = phase_cycle_core_timing(impl, cargs, ckw)
         del cargs, ckw
     head_t = phase_head_records_timing(device)
+    threefry_t = phase_threefry_timing(device)
     torch.cuda.empty_cache()
     grant_run, oracle = phase_main_path(net, device)
     grids, cycle_runs = {}, {}
@@ -3843,9 +3971,22 @@ def main(argv=None):
         for form in ("dense", "picked")}
     head_entry.update({k: head_t[k] for k in (
         "picked_ms", "picked_take_ms", "picked_bound_ms")})
+    # the PRNG's draws (the reference's `jax.random`, fused by XLA; no TPU
+    # kernel): launches of phase 4's three steps, the randint form's time
+    # beside its plain version's, every form's under `forms`
+    main_runs = [grant_run, *cycle_runs.values()]
+    threefry_entry = kernel_entry(
+        "netsim.threefry", "src/repro_torch/kernels/netsim/csrc/threefry.cu",
+        "src/repro/core/engine/inject.py:159 (jax.random; no TPU kernel)",
+        sum(sum(r["threefry"].values()) for r in main_runs), 0, threefry_t)
+    threefry_entry["launches_by_kernel"] = {
+        form: sum(r["threefry"][form] for r in main_runs)
+        for form in ("split", "bits", "uniform", "randint", "bernoulli")}
+    threefry_entry["forms"] = threefry_t["forms"]
     for entry, wrapper in ((grant_entry, "grant"),
                            (cycle_entry, "cycle_core"),
-                           (head_entry, "head_records")):
+                           (head_entry, "head_records"),
+                           (threefry_entry, "threefry")):
         entry["by_path"] = {"main": dict(
             launches=entry["launches"],
             launches_by_kernel=entry["launches_by_kernel"])}
@@ -3916,6 +4057,7 @@ def main(argv=None):
         grant_entry,
         cycle_entry,
         head_entry,
+        threefry_entry,
         fa_entry,
         ssd_entry,
         rglru_entry]}))

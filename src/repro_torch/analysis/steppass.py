@@ -14,7 +14,8 @@ on `TRACE_TOPO` with GLOBAL-only link faults (routable under every VC
 mode).  On a CUDA device the `jnp` cells launch the `grant` kernel, the
 `fused` cells the coop `cycle_core` kernel and the `compact` cells the
 three-pass `cycle_core` kernel (`kernels.netsim.ops.kernel_for`), once
-each.
+each, and every cell the PRNG's `threefry` kernel once a draw (three:
+`split`, `uniform`, `randint`).
 
   STEP_CARRY  the output state's fields (the stats' included) differ
               from the input's in name, shape or dtype.  A replay writes

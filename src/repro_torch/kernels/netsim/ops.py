@@ -34,10 +34,18 @@ gather the fused step's 32-byte buffer records, one thread a record:
 every buffer head, and one record a channel by index.  Their launches
 are counted as the arbitration wrappers' are, under the one wrapper name
 `head_records` (its "kernels" the two forms, "dense" and "picked").
+
+`threefry_split`, `threefry_bits`, `threefry_uniform`, `threefry_randint`
+and `threefry_bernoulli` (``csrc/threefry.cu``) are the draws of the
+port's PRNG, `repro_torch.random`: on a CUDA key one launch a draw, one
+thread an output element; on a CPU key the plain versions in `ref`, the
+same bits.  They are counted under the wrapper name `threefry`, one
+"kernel" a form.
 """
 from __future__ import annotations
 
 import ctypes
+import math
 from collections import OrderedDict
 from pathlib import Path
 from types import SimpleNamespace
@@ -46,19 +54,26 @@ import torch
 
 from ..build import load_library
 from .ref import (check_r2, cycle_core_ref, grant_ref,
-                  head_records_dense_ref, head_records_picked_ref)
+                  head_records_dense_ref, head_records_picked_ref,
+                  randint_span, threefry_bernoulli_ref, threefry_bits_ref,
+                  threefry_randint_ref, threefry_split_ref,
+                  threefry_uniform_ref)
 
 LIBRARY = "netsim"
 SOURCES = [Path(__file__).parent / "csrc" / name
            for name in ("grant.cu", "cycle_core.cu", "grant_coop.cu",
-                        "cycle_core_coop.cu", "head_records.cu")]
+                        "cycle_core_coop.cu", "head_records.cu",
+                        "threefry.cu")]
 KERNELS = ("coop", "three_pass")
 HEAD_FORMS = ("dense", "picked")
+# the draws of `threefry.cu`, in the order of its `form` argument
+THREEFRY_FORMS = ("split", "bits", "uniform", "randint", "bernoulli")
 # int32 fields a buffer record: the state's NUM_FUSED_FIELDS
 RECORD_FIELDS = 8
 # the three-pass kernels' grid puts the lanes on its y dimension
 MAX_LANES = 65_535
 _P, _L, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+_U = ctypes.c_uint
 _ARGTYPES = {
     "netsim_grant": [_P, _P, _P, _P, _P, _P, _L, _P, _L, _P, _P, _P, _I, _I,
                      _I, _I, _P, _P],
@@ -72,16 +87,18 @@ _ARGTYPES = {
                                   _I, _I, _I, _I, _P, _P],
     "netsim_head_records_picked": [_P, _L, _L, _I, _P, _L, _L, _P, _I, _I,
                                    _P, _P],
+    "netsim_threefry": [_I, _P, _L, _L, _I, _I, _P, _U, _U, _U,
+                        ctypes.c_float, _P, _P],
 }
 # library name -> {function name: the bound ctypes function}, bound once
 _BOUND: dict = {}
 # (device, stream, B, E) -> the coop kernel's scratch, kept between calls
 _SCRATCH: OrderedDict = OrderedDict()
 _SCRATCH_KEPT = 8
-WRAPPERS = ("grant", "cycle_core", "head_records")
+WRAPPERS = ("grant", "cycle_core", "head_records", "threefry")
 # wrapper -> the kernels it launches, in the order of its device counts
 WRAPPER_KERNELS = {"grant": KERNELS, "cycle_core": KERNELS,
-                   "head_records": HEAD_FORMS}
+                   "head_records": HEAD_FORMS, "threefry": THREEFRY_FORMS}
 _WIDTH = max(map(len, WRAPPER_KERNELS.values()))
 # device -> int64 [wrapper, kernel]: the launches the kernels counted
 _DEVICE_LAUNCHES: dict = {}
@@ -484,3 +501,112 @@ def head_records_picked(head, idx):
 head_records = SimpleNamespace(launches=0,
                                launches_by_kernel=dict.fromkeys(HEAD_FORMS,
                                                                 0))
+
+
+def _threefry_key(key):
+    """`key` checked as keys ``[..., 2]`` of int64 words on a device the
+    draws run on; returns its device.  (The host key chain checks 1,500
+    keys a job: ~2 us each beside a split's ~1.2 ms on the CPU.)"""
+    if key.dtype != torch.int64 or key.dim() == 0 or key.shape[-1] != 2:
+        raise ValueError(f"threefry: the key must be int64 of shape "
+                         f"[..., 2], got {key.dtype} {tuple(key.shape)}")
+    device = key.device
+    if device.type not in ("cpu", "cuda"):
+        raise ValueError(f"threefry: unsupported device {device}")
+    return device
+
+
+def _draw(form, key, shape, out_shape, dtype, span=1, mult=0, minval=0,
+          p=0.0):
+    """Launch the `form` draw of `n` = prod(`shape`) elements a lane of
+    the CUDA `key` into a new ``[*key.shape[:-1], *out_shape]`` tensor of
+    `dtype`, on the current stream, and count it: `threefry.launches` and
+    `threefry.launches_by_kernel[form]` on the host, its
+    `device_launches` slot on the device."""
+    if not _on_current_device(key.device):
+        with torch.cuda.device(key.device):
+            return _draw(form, key, shape, out_shape, dtype, span, mult,
+                         minval, p)
+    lanes = tuple(key.shape[:-1])
+    n = math.prod(shape)
+    total = math.prod(lanes) * n
+    if total >= 2**31:
+        raise ValueError(f"threefry: {total} elements exceed the kernel's "
+                         f"32-bit element index")
+    out = torch.empty(lanes + tuple(out_shape), dtype=dtype,
+                      device=key.device)
+    if total == 0:
+        return out
+    # one lane dimension: a view wherever the lanes' strides allow one
+    flat = key.reshape(-1, 2)
+    rc = _fn("netsim_threefry")(
+        THREEFRY_FORMS.index(form), flat.data_ptr(), flat.stride(0),
+        flat.stride(1), n, total, out.data_ptr(), span, mult,
+        minval & 0xFFFFFFFF, p, _launch_slot(key.device, "threefry", form),
+        _stream())
+    if rc != 0:
+        raise RuntimeError(f"netsim threefry {form} kernel launch failed: "
+                           f"CUDA error {rc}")
+    threefry.launches += 1
+    threefry.launches_by_kernel[form] += 1
+    return out
+
+
+def _shape(shape) -> tuple:
+    return tuple(int(s) for s in shape)
+
+
+def threefry_split(key, num: int = 2):
+    """`jax.random.split(key, num)`: the same arguments and result as
+    `ref.threefry_split_ref` (keys ``[..., 2]`` -> ``[..., num, 2]``,
+    int64)."""
+    if _threefry_key(key).type == "cpu":
+        return threefry_split_ref(key, num)
+    return _draw("split", key, (int(num),), (int(num), 2), torch.int64)
+
+
+def threefry_bits(key, shape):
+    """32 random bits an element (uint32 values in int64): the same
+    arguments and result as `ref.threefry_bits_ref`."""
+    if _threefry_key(key).type == "cpu":
+        return threefry_bits_ref(key, shape)
+    shape = _shape(shape)
+    return _draw("bits", key, shape, shape, torch.int64)
+
+
+def threefry_uniform(key, shape):
+    """`jax.random.uniform(key, shape)` (float32 in [0, 1)): the same
+    arguments and result as `ref.threefry_uniform_ref`."""
+    if _threefry_key(key).type == "cpu":
+        return threefry_uniform_ref(key, shape)
+    shape = _shape(shape)
+    return _draw("uniform", key, shape, shape, torch.float32)
+
+
+def threefry_randint(key, shape, minval: int, maxval: int):
+    """`jax.random.randint(key, shape, minval, maxval)` (int32): the same
+    arguments and result as `ref.threefry_randint_ref`; bounds outside
+    int32 raise ValueError on every device."""
+    if _threefry_key(key).type == "cpu":
+        return threefry_randint_ref(key, shape, minval, maxval)
+    span, mult = randint_span(minval, maxval)
+    shape = _shape(shape)
+    return _draw("randint", key, shape, shape, torch.int32, span=span,
+                 mult=mult, minval=int(minval))
+
+
+def threefry_bernoulli(key, p: float, shape):
+    """`jax.random.bernoulli(key, p, shape)` (bool; `p` rounded to
+    float32, the threshold): the same arguments and result as
+    `ref.threefry_bernoulli_ref`."""
+    if _threefry_key(key).type == "cpu":
+        return threefry_bernoulli_ref(key, p, shape)
+    shape = _shape(shape)
+    return _draw("bernoulli", key, shape, shape, torch.bool, p=float(p))
+
+
+# the host counts of the draws, by form, under the wrapper name that
+# `WRAPPERS` and `device_launches` give them
+threefry = SimpleNamespace(launches=0,
+                           launches_by_kernel=dict.fromkeys(THREEFRY_FORMS,
+                                                            0))

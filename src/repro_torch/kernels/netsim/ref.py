@@ -10,8 +10,14 @@ the CPU path of `ops` and the references the CUDA kernels are held to.
 Integer keys and exact min/tie-break semantics make "bit-identical"
 well-defined.  `head_records_dense_ref` and `head_records_picked_ref` are
 the fused step's record gathers as `take` / `lane_take` expressions.
+`threefry_split_ref`, `threefry_bits_ref`, `threefry_uniform_ref`,
+`threefry_randint_ref` and `threefry_bernoulli_ref` are the draws of the
+port's PRNG (`repro_torch.random`), `threefry2x32` run as int64 tensor
+operations masked to 32 bits.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -149,3 +155,94 @@ def head_records_picked_ref(head, idx):
     with the reference's gather rule: a negative index wraps once, then
     is clamped to [0, R - 1].  Returns [B, E, F]."""
     return lane_take(head, idx)
+
+
+# ---- Threefry-2x32, the PRNG's hash ------------------------------------
+
+M32 = 0xFFFFFFFF
+_ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
+_KS_PARITY = 0x1BD11BDA
+
+
+def _rotl(x, r: int):
+    return ((x << r) | (x >> (32 - r))) & M32
+
+
+def threefry2x32(k1, k2, x0, x1):
+    """The Threefry-2x32 hash (20 rounds) on broadcastable int64 tensors
+    of uint32 words; returns the two output words."""
+    ks = (k1, k2, k1 ^ k2 ^ _KS_PARITY)
+    x0 = (x0 + ks[0]) & M32
+    x1 = (x1 + ks[1]) & M32
+    for i in range(5):
+        for r in _ROTATIONS[i % 2]:
+            x0 = (x0 + x1) & M32
+            x1 = _rotl(x1, r) ^ x0
+        x0 = (x0 + ks[(i + 1) % 3]) & M32
+        x1 = (x1 + ks[(i + 2) % 3] + (i + 1)) & M32
+    return x0, x1
+
+
+def _hash(key: torch.Tensor, shape: tuple):
+    """Threefry over the flat iota of `shape` (hi/lo count words), keyed
+    per leading batch entry of `key`; returns both output words."""
+    n = math.prod(shape)
+    lo = torch.arange(n, dtype=torch.int64, device=key.device).reshape(shape)
+    hi = lo >> 32
+    bshape = key.shape[:-1] + (1,) * len(shape)
+    k1 = key[..., 0].reshape(bshape)
+    k2 = key[..., 1].reshape(bshape)
+    return threefry2x32(k1, k2, hi, lo)
+
+
+def randint_span(minval: int, maxval: int) -> tuple[int, int]:
+    """`randint`'s span and multiplier (uint32 values): the span 1 for an
+    empty range, and ``(2^16 mod span)^2 mod span``, with which two 32-bit
+    draws combine into one below the span."""
+    if not (-2**31 <= minval and maxval <= 2**31 - 1):
+        raise ValueError(f"randint bounds [{minval}, {maxval}) exceed int32")
+    span = 1 if maxval <= minval else (maxval - minval) & M32
+    mult = (2**16) % span
+    return span, ((mult * mult) & M32) % span
+
+
+def threefry_split_ref(key: torch.Tensor, num: int) -> torch.Tensor:
+    """`jax.random.split(key, num)`: keys ``[..., 2]`` -> ``[..., num, 2]``."""
+    b1, b2 = _hash(key, (num,))
+    return torch.stack([b1, b2], dim=-1)
+
+
+def threefry_bits_ref(key: torch.Tensor, shape: tuple) -> torch.Tensor:
+    """32 random bits per element (uint32 values in int64)."""
+    b1, b2 = _hash(key, tuple(shape))
+    return b1 ^ b2
+
+
+def threefry_uniform_ref(key: torch.Tensor, shape: tuple) -> torch.Tensor:
+    """`jax.random.uniform(key, shape)`: float32 in [0, 1)."""
+    bits = threefry_bits_ref(key, shape)
+    fbits = (bits >> 9) | 0x3F800000
+    return fbits.to(torch.int32).view(torch.float32) - 1.0
+
+
+def threefry_randint_ref(key: torch.Tensor, shape: tuple, minval: int,
+                         maxval: int) -> torch.Tensor:
+    """`jax.random.randint(key, shape, minval, maxval)` (int32): two 32-bit
+    draws combined by the reference's multiply-and-remainder construction,
+    so spans that are not powers of two give the reference's values."""
+    span, mult = randint_span(minval, maxval)
+    ks = threefry_split_ref(key, 2)
+    higher = threefry_bits_ref(ks[..., 0, :], shape)
+    lower = threefry_bits_ref(ks[..., 1, :], shape)
+    off = (((higher % span) * mult) & M32) + (lower % span)
+    off = (off & M32) % span
+    val = (off + (minval & M32)) & M32
+    return torch.where(val >= 2**31, val - 2**32, val).to(torch.int32)
+
+
+def threefry_bernoulli_ref(key: torch.Tensor, p: float,
+                           shape: tuple) -> torch.Tensor:
+    """`jax.random.bernoulli(key, p, shape)` (float32 threshold)."""
+    # a fill, not a host copy: the draw can be captured in a CUDA graph
+    return threefry_uniform_ref(key, shape) < torch.full(
+        (), p, dtype=torch.float32, device=key.device)

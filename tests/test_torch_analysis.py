@@ -518,9 +518,14 @@ def test_step_pass_on_the_card_matches_the_cpu():
     assert not card.failed, card.render()
     n = len(PST.VC_MODES) * len(PST.FAULT_KINDS)
     got = {w: {k: d1[w][k] - d0[w][k] for k in d1[w]} for w in d1}
+    # each of the 3n cells draws three times in its cycle (min routing,
+    # uniform traffic): the split of its key, the coins, the destinations
     assert got == {"grant": {"coop": n, "three_pass": 0},
                    "cycle_core": {"coop": n, "three_pass": n},
-                   "head_records": {"dense": n, "picked": n}}
+                   "head_records": {"dense": n, "picked": n},
+                   "threefry": {"split": 3 * n, "bits": 0,
+                                "uniform": 3 * n, "randint": 3 * n,
+                                "bernoulli": 0}}
 
 
 @pytest.mark.cuda

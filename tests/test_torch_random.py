@@ -3,6 +3,9 @@
 Every comparison is exact: the port must draw the reference's bits for
 every primitive the simulator uses, at the shapes and spans of its call
 sites (traffic, injection, misrouting, the sweep's per-cycle key chain).
+These are the CPU's draws, the plain versions; the card's Threefry
+kernel is held to them at the same shapes, spans and keys in
+`tests/test_torch_netsim_threefry.py`.
 """
 import numpy as np
 import jax
@@ -40,7 +43,7 @@ def test_prng_key(seed):
     assert (_np(jax.random.PRNGKey(seed)) == jr.PRNGKey(seed).numpy()).all()
 
 
-@pytest.mark.parametrize("num", [2, 3, 5])
+@pytest.mark.parametrize("num", [2, 3, 5, 24])
 def test_split(num):
     keys = [jax.random.PRNGKey(s) for s in (0, 3, 11)]
     want = np.stack([_np(jax.random.split(k, num)) for k in keys])
@@ -62,7 +65,8 @@ def test_uniform(shape):
 # cases (empty span, negative minval, a span above 2^16)
 @pytest.mark.parametrize("lo,hi", [(0, 191), (0, 5247), (0, 4), (0, 64),
                                    (0, 3), (0, 41), (0, 1), (5, 5),
-                                   (-3, 100003)])
+                                   (-3, 100003), (0, 128), (0, 2**31 - 1),
+                                   (-2**31, 2**31 - 1)])
 def test_randint(lo, hi):
     for s in (0, 9):
         want = np.asarray(jax.random.randint(jax.random.PRNGKey(s), (300,),
@@ -78,6 +82,45 @@ def test_bernoulli():
                                                (192,)))
         got = jr.bernoulli(jr.PRNGKey(s), 0.5, (192,)).numpy()
         assert (want == got).all()
+
+
+SHAPES = [(), (7,), (5248,), (3, 5)]
+
+
+@pytest.mark.parametrize("shape", SHAPES, ids=str)
+def test_random_bits(shape):
+    for s in (0, 2**31 + 5):
+        want = np.asarray(jax.random.bits(jax.random.PRNGKey(s), shape))
+        got = jr.random_bits(jr.PRNGKey(s), shape).numpy()
+        assert got.shape == want.shape and want.dtype == np.uint32
+        assert (want.astype(np.int64) == got).all()
+
+
+@pytest.mark.parametrize("shape", SHAPES, ids=str)
+def test_bernoulli_shapes(shape):
+    for s in (0, 2**31 + 5):
+        want = np.asarray(jax.random.bernoulli(jax.random.PRNGKey(s), 0.3,
+                                               shape))
+        got = jr.bernoulli(jr.PRNGKey(s), 0.3, shape).numpy()
+        assert got.shape == want.shape and (want == got).all()
+
+
+def test_strided_subkeys_match_vmap():
+    """The step's draws from the strided subkeys `split(keys, 3)[:, i]`
+    of 24 lanes, against `vmap` over the reference's split keys."""
+    seeds = [2**31 + 17 + 7919 * i for i in range(24)]
+    jkeys = jax.vmap(lambda k: jax.random.split(k, 3))(
+        jax.numpy.stack([jax.random.PRNGKey(s) for s in seeds]))
+    ks = jr.split(torch.stack([jr.PRNGKey(s) for s in seeds]), 3)
+    assert (_np(jkeys) == ks.numpy()).all()
+    want = np.asarray(jax.vmap(
+        lambda k: jax.random.uniform(k, (5248,)))(jkeys[:, 0]))
+    got = jr.uniform(ks[:, 0], (5248,)).numpy()
+    assert (want.view(np.int32) == got.view(np.int32)).all()
+    for i, (lo, hi) in ((1, (0, 5247)), (2, (0, 41))):
+        want = np.asarray(jax.vmap(
+            lambda k: jax.random.randint(k, (5248,), lo, hi))(jkeys[:, i]))
+        assert (want == jr.randint(ks[:, i], (5248,), lo, hi).numpy()).all()
 
 
 def test_lane_batched_draws_match_vmap():
