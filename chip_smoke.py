@@ -68,8 +68,8 @@ Phases (any failure ends the run with a nonzero exit):
    the warmup reset (62) inside a superstep, cold faults and the reaper;
    on the paper network (4 lanes, 300 cycles) at K = 1 and 4, with a
    second sweep that must capture nothing, and cycles/s eager and replayed,
-   capture seconds and peak memory; the lockstep and sequential lane forms
-   timed (equal counters) beside the planner's pick; and
+   capture seconds and peak memory; the lanes in lockstep timed through
+   the sweep (its counters equal to the eager loop's); and
    `assert_deadlock_free` on the card equal to the CPU on the radix-16
    network with 7 W-groups;
 7. the flash-attention kernels against their plain version on the card,
@@ -493,7 +493,7 @@ def phase_grant_live(net, device, cycles=LIVE_CYCLES):
                                          make_apply_fn, make_inject_fn,
                                          make_state)
     from repro_torch.core.engine.arbitrate import expand_vcs, gather_requests
-    from repro_torch.core.engine.step import _key_chain
+    from repro_torch.core.engine.step import key_chain
     from repro_torch.core.engine.sweep import offered_to_rate_pkt
     from repro_torch.core.routing import share_lanes
     from repro_torch.core.simulator import SimConfig
@@ -508,8 +508,8 @@ def phase_grant_live(net, device, cycles=LIVE_CYCLES):
     tpc = net.num_terminals / net.num_chips
     rates = torch.tensor([offered_to_rate_pkt(r, cfg, tpc) for r, _ in lanes],
                          dtype=torch.float32, device=device)
-    subs = _key_chain(torch.stack([jr.PRNGKey(s) for _, s in lanes]),
-                      cycles).to(device)
+    subs = key_chain(torch.stack([jr.PRNGKey(s) for _, s in lanes]),
+                     cycles)[1].to(device)
     fl = share_lanes(build_lane(net, cfg, None, device=device), B)
     state = make_state(net, cfg, consts["NV"], batch=(B,), device=device)
     err, granted = 0, 0
@@ -1195,7 +1195,7 @@ def phase_profile_graph(net, device, impl, K, cycles=40):
     from repro_torch.core import traffic
     from repro_torch.core.engine import (build_lane, graphs, make_state,
                                          make_step)
-    from repro_torch.core.engine.step import _key_chain, run_scan
+    from repro_torch.core.engine.step import key_chain, run_scan
     from repro_torch.core.routing import share_lanes
     cfg = fast_cfg(impl)
     step, consts = make_step(net, cfg, traffic.uniform(net), device=device)
@@ -1206,7 +1206,7 @@ def phase_profile_graph(net, device, impl, K, cycles=40):
     rates = torch.full((B,), 0.025, dtype=torch.float32, device=device)
     state = run_scan(step, 100, -1, state, rates, keys, fl)
     graph, _ = graphs.graph_for(step, K, state, rates, fl)
-    subs = _key_chain(keys, cycles)
+    subs = key_chain(keys, cycles)[1]
     graph.run(state, rates, fl, -1, subs)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -1361,13 +1361,12 @@ def phase_graphs(net, device):
     """The captured CUDA graphs against the eager loop, bit for bit: on
     the small network with a warm onset and the warmup reset inside a
     K = 4 superstep, then on the paper network (4 lanes) at K = 1 and 4,
-    each step timed both ways; the lane forms timed at the paper's scale;
-    the deadlock proof on the card against the CPU.  Returns the paper
-    network's numbers per step."""
+    each step timed both ways; the lanes in lockstep timed at the paper's
+    scale; the deadlock proof on the card against the CPU.  Returns the
+    paper network's numbers per step."""
     import torch
     from repro_torch.core import topology as T
     from repro_torch.core import traffic
-    from repro_torch.core.engine import make_state
     from repro_torch.core.engine import sweep as SW
     from repro_torch.core.simulator import SimConfig, Simulator
     small = T.build_switchless(T.SwitchlessParams(**SMALL), "small")
@@ -1391,7 +1390,7 @@ def phase_graphs(net, device):
         print(f"[graphs] small net {impl}: captured K = 4 == eager on "
               f"{len(rows) * 2} lanes (pristine, cold, warm onset 61, "
               f"reset at 62, reaper on)")
-    out = {}
+    out, eager_rows = {}, {}
     for impl, rates in (("jnp", FULL_RATES),) + tuple(
             (i, FAST_RATES) for i in FAST_STEPS):
         cfg = SimConfig(**GRAPH_PAPER, step_impl=impl)
@@ -1402,6 +1401,7 @@ def phase_graphs(net, device):
         t0 = time.perf_counter()
         eager = sim.sweep_grid(list(rates), seeds=FULL_SEEDS)
         torch.cuda.synchronize()
+        eager_rows[impl] = _grid_rows(eager)
         runs = 1 + eager.escalations
         res = dict(eager_cycles_per_s=cycles * runs
                    / (time.perf_counter() - t0))
@@ -1440,32 +1440,16 @@ def phase_graphs(net, device):
         cfg = SimConfig(**GRAPH_PAPER, step_impl=impl)
         cycles = cfg.warmup + cfg.measure
         sw = Simulator(net, cfg, traffic.uniform(net), device=device)._batched
-        _, rt, keys, fl, _ = sw._prepare_lanes(
-            [(r, s, None) for r in rates for s in FULL_SEEDS])
-        keys = keys.to(device)
-        lane_cps, stats = {}, {}
-        for form, scan in (("lockstep", SW._scan_lanes),
-                           ("sequential", SW._scan_lanes_seq)):
-            args = lambda: (make_state(net, cfg, sw.NV, batch=(len(rt),),
-                                       device=device), rt, keys, fl)
-            scan(sw.step, cycles, cfg.warmup, 1, "graph", *args())
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            stats[form] = scan(sw.step, cycles, cfg.warmup, 1, "graph",
-                               *args())[0]
-            torch.cuda.synchronize()
-            lane_cps[form] = len(rt) * cycles / (time.perf_counter() - t0)
-        check(all(torch.equal(v, getattr(stats["sequential"], k))
-                  for k, v in vars(stats["lockstep"]).items()),
-              f"{impl}: sequential lanes != lockstep")
-        pick = SW.lane_form(sw.step, device)
-        out[impl]["lane_cycles_per_s"] = lane_cps
-        out[impl]["lane_form"] = pick
-        print(f"[graphs] lane form {impl}: lockstep "
-              f"{lane_cps['lockstep']:.2f} lane-cycles/s, sequential "
-              f"{lane_cps['sequential']:.2f} (equal counters); the planner "
-              f"picks {pick}; faster in this run: "
-              f"{max(lane_cps, key=lane_cps.get)}")
+        lanes = [(r, s, None) for r in rates for s in FULL_SEEDS]
+        sw.run_lanes(lanes)                       # captures the graph
+        run = sw.run_lanes(lanes)
+        check([dataclasses.asdict(r) for r in run.results]
+              == eager_rows[impl], f"{impl}: lockstep lanes != eager")
+        lane_cps = (len(lanes) * cycles * (1 + run.escalations)
+                    / run.wall_s)
+        out[impl]["lane_cycles_per_s"] = {"lockstep": lane_cps}
+        print(f"[graphs] lanes in lockstep {impl}: {lane_cps:.2f} "
+              f"lane-cycles/s over {len(lanes)} lanes (== eager)")
     SW.clear_aot_cache()
     torch.cuda.empty_cache()
     from repro_torch.core.routing import assert_deadlock_free
@@ -2486,7 +2470,7 @@ def phase_windows(device, spec, grids):
     one-shot run of the same lanes on the same graph, and the host's time
     to draw the run's key chain.  Returns the numbers and launches."""
     import torch
-    from repro_torch.core.engine.step import _key_chain
+    from repro_torch.core.engine.step import key_chain
     from repro_torch.core.engine.sweep import BatchedSweep
     from repro_torch.exp import runner
     cell = next(runner.cells(spec))
@@ -2497,7 +2481,7 @@ def phase_windows(device, spec, grids):
     sweep = BatchedSweep(cell.net, cell.cfg, cell.pattern, device=device)
     keys = sweep._prepare_lanes(lanes)[2]
     t0 = time.perf_counter()
-    _key_chain(keys, cycles)
+    key_chain(keys, cycles)
     out = dict(key_chain_s=time.perf_counter() - t0,
                phase12_cycles_per_s=cycles / grids.grids[0].wall_s)
     print(f"[windows] the host draws the key chain of {len(lanes)} lanes x "

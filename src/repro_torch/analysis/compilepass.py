@@ -13,8 +13,7 @@ The pass rebuilds that key for each grid without a step and without
 allocating the state, on the `meta` device:
 
   * K = `sweep.superstep(warmup + measure)`;
-  * the lane count, and the lane form `sweep.lane_form` picks on the
-    device (one lane at a time for the compact step on the CPU);
+  * the lane count (every step runs its lanes in lockstep);
   * `graphs._state_signature` of `make_state(..., device="meta")`;
   * `graphs.lane_signature` of the lane dict `BatchedSweep._prepare_lanes`
     would build, from SHAPE PROXIES of the grid's fault specs (an empty
@@ -52,11 +51,10 @@ port makes as many graphs as there are grids.
 from __future__ import annotations
 
 import hashlib
-from types import SimpleNamespace
 
 from ..core.engine import graphs
 from ..core.engine.state import build_lane, make_state, stack_lanes
-from ..core.engine.sweep import lane_form, superstep
+from ..core.engine.sweep import superstep
 from ..core.routing import num_vcs, share_lanes
 from ..core.topology import FaultSchedule, FaultSet
 from ..device import resolve_device
@@ -92,23 +90,20 @@ def step_identity(topo, routing, traffic, cycles: int) -> tuple:
             repr(traffic.to_dict()), cycles)
 
 
-def graph_key_signature(net, cfg, B: int, lane_data: dict, K: int,
-                        sequential: bool = False) -> tuple:
+def graph_key_signature(net, cfg, B: int, lane_data: dict, K: int) -> tuple:
     """(K, lane count, state signature, lane signature) of the graph a
-    B-lane dispatch of `lane_data` keys on; `sequential` for the one-lane
-    dispatches of the sequential lane form."""
+    B-lane dispatch of `lane_data` keys on."""
     NV = (num_vcs(net.meta["kind"], cfg.vc_mode, cfg.nonminimal)
           * cfg.vcs_per_class)
-    if sequential:
-        B, lane_data = 1, {k: v[:1] for k, v in lane_data.items()}
     state = make_state(net, cfg, NV, batch=(B,), device=META)
     return (K, B, graphs._state_signature(state),
             graphs.lane_signature(lane_data))
 
 
-def grid_key(topo, routing, traffic, axes, device) -> tuple:
+def grid_key(topo, routing, traffic, axes) -> tuple:
     """`graph_key_signature` of one grid's single dispatch: the key
-    `graphs.graph_for` uses for it, minus the step and the device.
+    `graphs.graph_for` uses for it, minus the step and the device (the
+    same on every device: every step runs its lanes in lockstep).
     Raises on lane-structure mismatch (the COMPILE_ONE failure)."""
     net = topo.build()
     cfg = routing.to_simconfig(axes)
@@ -133,20 +128,15 @@ def grid_key(topo, routing, traffic, axes, device) -> tuple:
                                  for _ in range(reps)])
     else:
         lane_data = share_lanes(per_fault[0], B)
-    # `sweep.lane_form` reads only whether the step is a compact one
-    step = SimpleNamespace(compact_capacity=int(routing.step_impl
-                                                == "compact"))
-    sequential = lane_form(step, resolve_device(device)) == "sequential"
-    return graph_key_signature(net, cfg, B, lane_data, superstep(cycles),
-                               sequential)
+    return graph_key_signature(net, cfg, B, lane_data, superstep(cycles))
 
 
-def grid_signature(topo, routing, traffic, axes, device) -> str:
+def grid_signature(topo, routing, traffic, axes) -> str:
     """The capture signature of one grid's single dispatch: its step's
     identity and its `grid_key`."""
     cycles = axes.warmup + axes.measure
     return _sig_digest(step_identity(topo, routing, traffic, cycles),
-                       grid_key(topo, routing, traffic, axes, device))
+                       grid_key(topo, routing, traffic, axes))
 
 
 def runner_graphs(spec: ExperimentSpec) -> int:
@@ -171,7 +161,7 @@ def check_spec(spec: ExperimentSpec, origin: str, report, *,
                          f"x {traffic.label}]")
                 try:
                     sig = grid_signature(topo, routing, traffic,
-                                         spec.axes, device)
+                                         spec.axes)
                 except Exception as e:
                     ok = False
                     report.add(

@@ -51,7 +51,7 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from .. import random as jr
 from ..core.engine import graphs
 from ..core.engine.state import build_lane, make_state
-from ..core.engine.step import _key_chain, make_step, superstep_body
+from ..core.engine.step import key_chain, make_step, superstep_body
 from ..core.routing import share_lanes
 from ..core.routing.pipeline import make_pipeline
 from ..core.simulator import SimConfig
@@ -132,7 +132,7 @@ def run_cell(step_impl: str, vc_mode: str, fault_kind: str, device,
     state = make_state(net, cfg, consts["NV"], batch=(LANES,),
                        device=device)
     keys = torch.stack([jr.PRNGKey(s) for s in range(LANES)])
-    subs = _key_chain(keys.to(device), cycles)
+    subs = key_chain(keys.to(device), cycles)[1]
     rate = torch.full((LANES,), RATE_PKT, dtype=torch.float32,
                       device=device)
     t0 = torch.zeros((), dtype=torch.int32, device=device)

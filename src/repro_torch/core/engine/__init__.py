@@ -13,8 +13,9 @@ with a leading lane dimension:
 ("fused", "compact"); `step.run_scan` (one cycle a host-int step) and
 `graphs.CycleGraph` (K-cycle supersteps of `step.superstep_body`, the
 cycle index on the device, replayed as a captured CUDA graph on CUDA and
-run eagerly on the CPU) are the cycle loops; `sweep.BatchedSweep` runs
-a (rate x seed x fault) lane grid through them, at once or window by
+run eagerly on the CPU) are the cycle loops, both fed by the lanes' key
+chain from `step.key_chain`; `sweep.BatchedSweep` runs a (rate x seed x
+fault) lane grid through them as one dispatch, at once or window by
 window (`sweep.LaneSession`), and `sweep.run_scan_batched` is the
 reference's public single-device batched scan, returning the final
 state.

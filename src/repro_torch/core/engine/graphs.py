@@ -8,15 +8,17 @@ index `t`, the warmup cycle and the K subkeys of one superstep.  The
 graph writes its new state back into the static state and advances `t`
 by K at its end, so a run of `cycles` cycles is one load of the static
 inputs and ``cycles / K`` replays, each after one device copy of the
-superstep's subkeys out of the run's host-drawn key chain.  On a CUDA
-device the superstep is captured and replayed; on the CPU the same
-superstep runs eagerly on the same buffers.
+superstep's subkeys out of the run's host-drawn key chain
+(`step.key_chain`).  On a CUDA device the superstep is captured and
+replayed; on the CPU the same superstep runs eagerly on the same
+buffers.
 
-A windowed `sweep.LaneSession` shares these graphs: each window copies
-the session's state into the static buffers, sets `t` to the session's
-absolute cycle (the warmup reset stays absolute), replays, and copies
+A sweep's one runner (`sweep._advance`) uses them two ways.  A windowed
+`sweep.LaneSession` copies its state into the static buffers, sets `t` to
+its absolute cycle (the warmup reset stays absolute), replays, and copies
 the state back out (`CycleGraph.advance`), so sessions of one signature
-interleave on one graph.
+interleave on one graph; a one-shot run is one window of the whole budget
+that copies only the counters out (`CycleGraph.run`).
 
 `graph_for` keeps one graph for each (step, K, lane count, lane-data
 signature, device) key, the last `GRAPHS_KEPT` keys used (each graph
@@ -200,12 +202,12 @@ class CycleGraph:
                 else:
                     self.graph.replay()
 
-    def run(self, state0: SimState, rate_pkt, fl, reset_at: int,
-            subs) -> SimStats:
-        """Advance the lanes ``len(subs)`` cycles from cycle 0; returns a
-        copy of the final counters, so a later run may reuse the
-        buffers."""
-        self._replay(state0, rate_pkt, fl, reset_at, subs, 0)
+    def run(self, state0: SimState, rate_pkt, fl, reset_at: int, subs,
+            t0: int = 0) -> SimStats:
+        """Advance the lanes ``len(subs)`` cycles from cycle `t0`; returns
+        a copy of the final counters (and nothing of the state), so a
+        later run may reuse the buffers."""
+        self._replay(state0, rate_pkt, fl, reset_at, subs, t0)
         with span("graph.copy"):
             return SimStats(**{k: v.clone()
                                for k, v in vars(self.state.stats).items()})

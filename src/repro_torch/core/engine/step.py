@@ -11,11 +11,13 @@ a host int or a 0-d int32 tensor on the lanes' device; the step makes no
 host synchronisation either way, so a CUDA graph captured with a tensor
 `t` replays at any starting cycle.
 
-Two cycle loops replace the reference's `lax.scan`: `run_scan`, one step
-a host-int cycle with the warmup reset decided on the host (the parity
-yardstick), and `superstep_body`, K cycles with `t` and the reset on the
-device — the body `engine.graphs.CycleGraph` replays as a CUDA graph (and
-runs eagerly on the CPU).
+Two cycle loops replace the reference's `lax.scan`: `run_steps`, one
+step a host-int cycle with the warmup reset decided on the host (the
+parity yardstick; `run_scan` from cycle 0), and `superstep_body`, K
+cycles with `t` and the reset on the device — the body
+`engine.graphs.CycleGraph` replays as a CUDA graph (and runs eagerly on
+the CPU).  Both take the subkeys of `key_chain`, the one place the lanes'
+per-cycle key chain is drawn.
 """
 from __future__ import annotations
 
@@ -82,34 +84,26 @@ def make_step(net: Network, cfg, pattern, inject_mask=None, *, device=None):
     return step, consts
 
 
-def _key_chain_seq(key: torch.Tensor, cycles: int) -> tuple:
-    """The per-cycle subkeys of the lanes `key [..., 2]` and every key on
-    the way: ``key_{t+1}, sub_t = split(key_t)``, returned as
-    ``(keys [cycles + 1, ..., 2], subs [cycles, ..., 2])`` with
-    ``keys[0] == key``, so a window of r cycles hands ``keys[r]`` to the
-    next one and the windows replay the one-shot chain.  Drawn on the CPU
-    (same bits as on the card, far fewer device launches); the keys stay
-    there, the subkeys move to `key`'s device once.  The whole of it is
+def key_chain(keys: torch.Tensor, cycles: int) -> tuple:
+    """The per-cycle subkeys of the lanes `keys [..., 2]`:
+    ``key_{t+1}, sub_t = split(key_t)``, returned as ``(next_keys,
+    subs)``: the key after `cycles` splits, on the CPU, and the subkeys
+    ``[cycles, ..., 2]`` on `keys`' device.  A window of r cycles hands
+    `next_keys` to the next one, so the windows replay the one-shot chain.
+    Drawn on the CPU (same bits as on the card, far fewer device
+    launches); the subkeys move to the device once.  The whole of it is
     the span `sweep.key_chain`."""
     with span("sweep.key_chain"):
-        k = key.cpu()
-        keys, subs = [k], []
+        k = keys.cpu()
+        subs = []
         for _ in range(cycles):
             s = jr.split(k)
-            k, sub = s[..., 0, :], s[..., 1, :]
-            keys.append(k)
-            subs.append(sub)
+            k = s[..., 0, :]
+            subs.append(s[..., 1, :])
         if not subs:
-            return (torch.stack(keys), torch.empty(
-                (0,) + tuple(key.shape), dtype=key.dtype,
-                device=key.device))
-        return torch.stack(keys), torch.stack(subs).to(key.device)
-
-
-def _key_chain(key: torch.Tensor, cycles: int) -> torch.Tensor:
-    """The per-cycle subkeys of the lanes `key [..., 2]` as
-    ``[cycles, ..., 2]`` on `key`'s device (`_key_chain_seq`)."""
-    return _key_chain_seq(key, cycles)[1]
+            return k, torch.empty((0,) + tuple(keys.shape),
+                                  dtype=keys.dtype, device=keys.device)
+        return k, torch.stack(subs).to(keys.device)
 
 
 def run_steps(step, t0: int, subs, reset_at: int, state, rate_pkt, fl):
@@ -128,7 +122,7 @@ def run_scan(step, cycles: int, reset_at: int, state0, rate_pkt, key, fl):
     """Advance the lanes `cycles` steps from cycle 0 (`run_steps`): `key`
     is ``[B, 2]``, and lane b draws the reference's per-cycle subkey
     chain of its key."""
-    return run_steps(step, 0, _key_chain(key, cycles), reset_at, state0,
+    return run_steps(step, 0, key_chain(key, cycles)[1], reset_at, state0,
                      rate_pkt, fl)
 
 

@@ -21,28 +21,26 @@ The cycle loop (`loop=`):
   them and `clear_aot_cache()` drops them; `compile_s` holds the warm-up
   and capture seconds and `wall_s` excludes them.  On the CPU the same
   supersteps run eagerly;
-- "eager": one step a host-int cycle (`step.run_scan`), the parity
+- "eager": one step a host-int cycle (`step.run_steps`), the parity
   yardstick, only when asked for.
 
-K is `superstep(cycles)` (REPRO_SUPERSTEP, falling back to 1 when it does
-not divide the cycles); every substep keeps its own absolute cycle and
+K is `superstep(span)` (REPRO_SUPERSTEP, falling back to 1 when it does
+not divide the span); every substep keeps its own absolute cycle and
 zeroes the stats on the device at the end of warmup, so any K gives the
-counters of K = 1.  `lane_form` picks how the lanes run: in lockstep, or
-one after another outside the cycle loop (the reference's
-`_scan_lanes_seq`), each as a one-lane dispatch of the same loop.
+counters of K = 1.
 
-The compact step's capacity ladder is ported: a run whose live-row
-census outgrew its rung is re-run whole at the next rung
-(`_PendingLanes.finish`), which captures anew.
-
-Windowed sessions (`BatchedSweep.start_lanes` -> `LaneSession`) advance
-the lanes one window at a time and hold their state, keys and absolute
-cycle between windows, so a service can stream counters, checkpoint and
-interleave many sessions.  Each window runs only its real cycles through
-the shared `CycleGraph`s (copied in, replayed, copied out): the K graph
-for whole supersteps and a K = 1 graph for a tail shorter than K, so a
-session costs one capture a signature, two when some window's length is
-not a multiple of K.  Chained windows replay the one-shot key chain, so
+One dispatch serves both forms of a run: `BatchedSweep._dispatch` makes
+it, and `_advance` runs it, drawing the lanes' key chain once
+(`step.key_chain`) and issuing every chunk before it reads any.  A
+one-shot run (`run_lanes`) is one window of the whole budget that copies
+only the counters out of its graph; a compact run whose live-row census
+outgrew its rung is re-run whole at the next rung
+(`_PendingLanes.finish`).  A `LaneSession` (`start_lanes`) advances
+window by window and holds the state, keys and absolute cycle between
+windows, so a service can stream counters, checkpoint and interleave
+sessions.  A window copies the state in and out of the shared
+`CycleGraph`s: the K graph for whole supersteps, a K = 1 graph for a
+shorter tail.  Chained windows replay the one-shot key chain, so
 `finish()` equals `run_lanes` bit for bit.
 
 Device placement (the reference's lane mesh): with more than one device
@@ -93,10 +91,7 @@ from .fused import (fused_pad, grant_form, make_compact_step,
 from .state import (SimState, SimStats, build_lane, make_state,
                     resolve_device, stack_lanes)
 from .stats import finalize, lane_stats
-# the key chains live with the cycle loop (`step.run_scan`) that draws
-# them; they are re-exported here, where the reference defines them
-from .step import (_key_chain, _key_chain_seq, make_step,  # noqa: F401
-                   run_steps)
+from .step import key_chain, make_step, run_steps
 
 # the cycle loops a dispatch can run (see the module docstring)
 LOOPS = ("graph", "eager")
@@ -162,68 +157,6 @@ def superstep(span: int | None = None) -> int:
     return k
 
 
-def lane_form(step, device: torch.device) -> str:
-    """The dispatch planner's lane form, "lockstep" (every lane in one
-    loop) or "sequential" (one lane at a time, outside the cycle loop).
-    On the CPU it is the reference's rule: sequential for the compact
-    step on one device.  On CUDA every step runs in lockstep, the form
-    `chip_smoke.py` measured faster at the paper's scale (PERF.md)."""
-    if torch.device(device).type == "cpu" and getattr(
-            step, "compact_capacity", 0):
-        return "sequential"
-    return "lockstep"
-
-
-def _scan_lanes(step, cycles: int, reset_at: int, K: int, loop: str,
-                state0, rate_pkt, keys, lanes, subs=None):
-    """Advance the B lanes `cycles` cycles in lockstep through `loop`;
-    returns (final counters, captures made, capture seconds).  `subs`
-    is the lanes' ``[cycles, B, 2]`` subkey chain when the caller drew it
-    already, else it is drawn from `keys`."""
-    if subs is None:
-        subs = _key_chain(keys, cycles)
-    if loop == "eager":
-        return (run_steps(step, 0, subs, reset_at, state0, rate_pkt,
-                          lanes).stats, 0, 0.0)
-    if loop != "graph":
-        raise ValueError(f"unknown loop {loop!r}; valid: {LOOPS}")
-    graph, captured = graphs.graph_for(step, K, state0, rate_pkt, lanes)
-    stats = graph.run(state0, rate_pkt, lanes, reset_at, subs)
-    return stats, int(captured), graph.capture_s if captured else 0.0
-
-
-def _lane_args(b: int, state0, rate_pkt, keys, lanes) -> tuple:
-    """Lane b of a dispatch's (state, rates, keys, lane data), each as a
-    one-lane view (a shared lane dict stays stride-0; no keys stay
-    None)."""
-    one = lambda x: x[b:b + 1]
-    st = SimState(stats=SimStats(**{k: one(v) for k, v
-                                    in vars(state0.stats).items()}),
-                  **{k: one(v) for k, v in vars(state0).items()
-                     if k != "stats"})
-    return (st, one(rate_pkt), None if keys is None else one(keys),
-            {k: one(v) for k, v in lanes.items()})
-
-
-def _scan_lanes_seq(step, cycles: int, reset_at: int, K: int, loop: str,
-                    state0, rate_pkt, keys, lanes, subs=None):
-    """`_scan_lanes` with the lane axis OUTSIDE the cycle loop: each lane
-    runs the whole loop as a one-lane dispatch (one graph serves every
-    lane of a signature).  Lanes are independent and keep their key
-    chains, so the counters are the lockstep form's bit for bit."""
-    if subs is None:
-        subs = _key_chain(keys, cycles)
-    stats, made, capture_s = [], 0, 0.0
-    for b in range(int(rate_pkt.shape[0])):
-        st, m, c = _scan_lanes(step, cycles, reset_at, K, loop,
-                               *_lane_args(b, state0, rate_pkt, keys,
-                                           lanes), subs=subs[:, b:b + 1])
-        stats.append(st)
-        made, capture_s = made + m, capture_s + c
-    return (SimStats(**{k: torch.cat([getattr(st, k) for st in stats])
-                        for k in vars(stats[0])}), made, capture_s)
-
-
 def run_scan_batched(step, cycles: int, reset_at: int, state0, rate_pkt,
                      keys, lanes, per_lane_faults: bool) -> SimState:
     """Single-device batched scan, the reference's stable public entry
@@ -233,21 +166,28 @@ def run_scan_batched(step, cycles: int, reset_at: int, state0, rate_pkt,
     every field.  `lanes` is lane-stacked ([B, ...]) with
     `per_lane_faults`, else one lane dict shared by every lane.
 
-    It draws the key chain `BatchedSweep` draws and runs the loop it runs
-    on the lanes' device: `run_steps` on the CPU; on CUDA a `CycleGraph`
-    of one cycle (captured once a signature), which copies the state in
-    and back out around its replays.  `state0` is left as it was (the
-    reference donates it)."""
+    It runs one chunk through the sweep's `_advance`: `run_steps` on the
+    CPU, a `CycleGraph` of one cycle on CUDA (the state copied in and
+    back out).  `state0` is left as it was (the reference donates it)."""
     B = int(rate_pkt.shape[0])
     fl = lanes if per_lane_faults else share_lanes(lanes, B)
     state = graphs.state_like(state0)
     graphs.copy_state(state, state0)
-    subs = _key_chain(keys, cycles)
-    if rate_pkt.device.type != "cuda":
-        return run_steps(step, 0, subs, reset_at, state, rate_pkt, fl)
-    graph, _ = graphs.graph_for(step, 1, state, rate_pkt, fl)
-    graph.advance(state, rate_pkt, fl, reset_at, subs, 0)
-    return state
+    loop = "graph" if rate_pkt.device.type == "cuda" else "eager"
+    return _run_pinned(step, cycles, reset_at, 1, loop, state, rate_pkt,
+                       keys, fl, keep=True)
+
+
+def _run_pinned(step, cycles: int, reset_at: int, K: int, loop: str, state,
+                rate_pkt, keys, lanes, keep: bool = False):
+    """The lanes of `state` as one chunk on their own device, advanced
+    `cycles` cycles from cycle 0 by `_advance` (`Simulator.run` and
+    `run_scan_batched`); returns the final state with `keep`, else the
+    final counters."""
+    ch = _Chunk(rate_pkt.device, 0, int(rate_pkt.shape[0]), step, state,
+                rate_pkt, lanes)
+    stats = _advance([ch], keys, 0, cycles, reset_at, K, loop, keep=keep)[1]
+    return ch.state if keep else stats[0]
 
 
 def offered_to_rate_pkt(offered_per_chip: float, cfg,
@@ -373,25 +313,96 @@ class _Chunk:
         self.rates, self.lanes = rates, lanes
 
 
-class _LanePlan:
-    """A prepared — and on the graph loop captured — lane dispatch that
-    has not run yet (`BatchedSweep.warm_compile`); single-use."""
+class _Dispatch:
+    """A prepared lane dispatch (`BatchedSweep._dispatch`): the lanes
+    padded and cut into chunks on their devices, their keys and absolute
+    cycle, and the graphs made for them.  `warm_compile` hands one out as
+    a single-use plan that `run_lanes_async` runs as one window of the
+    whole budget; a `LaneSession` is one advanced window by window."""
 
-    def __init__(self, lanes, fault_sets, keys, chunks, step, K, form,
-                 compile_s, compile_count, grant_form, placement,
-                 pad_fraction, device, shards):
+    def __init__(self, sweep, lanes, fault_sets, keys, cycle, chunks,
+                 superstep, shards, grant_form, placement, pad_fraction,
+                 device, window):
+        self.sweep = sweep
         self.lanes, self.fault_sets = lanes, fault_sets
+        self.num_lanes = len(lanes)
         self.keys = keys          # [Bp, 2] on the CPU, ghosts included
+        self.cycle = cycle        # the absolute cycle the chunks are at
+        self.total = sweep.cfg.warmup + sweep.cfg.measure
+        self.window = window or self.total
         self.chunks = chunks      # list of _Chunk, in lane order
-        self.step, self.K, self.form = step, K, form
-        self.compile_s, self.compile_count = compile_s, compile_count
+        self.step, self.superstep = chunks[0].step, superstep
+        self.shards = shards      # channel shards a lane row (1: none)
         self.grant_form = grant_form
         self.placement, self.pad_fraction = placement, pad_fraction
         self.device = device      # the pinned device, or None
-        self.shards = shards      # channel shards a lane row (1: none)
-        self.capacity = getattr(step, "compact_capacity", 0)
-        self.rows = getattr(step, "compact_rows", 0)
+        self.capacity = getattr(self.step, "compact_capacity", 0)
+        # the graphs made ahead (see `BatchedSweep._dispatch`)
+        self.compile_s, self.compile_count = 0.0, 0
         self.used = False
+
+    def _run(self, real: int, keep: bool = True) -> tuple:
+        """`_advance` the chunks `real` cycles from the dispatch's cycle;
+        returns its counters, captures and capture seconds."""
+        sweep = self.sweep
+        self.keys, stats, made, capture_s = _advance(
+            self.chunks, self.keys, self.cycle, real, sweep.cfg.warmup,
+            self.superstep, sweep.loop, self.shards, keep)
+        self.cycle += real
+        return stats, made, capture_s
+
+    def _lane_run(self, stats: SimStats, wall_s: float, occ: int) -> LaneRun:
+        """The `LaneRun` of the final counters `stats` (host, the ghost
+        lanes last and never read) that peaked at `occ` live rows."""
+        sweep = self.sweep
+        results = [finalize(lane_stats(stats, i), sweep.cfg,
+                            self.lanes[i][0], sweep._chips(self.fault_sets[i]))
+                   for i in range(self.num_lanes)]
+        return LaneRun(results, wall_s, self.compile_s, self.compile_count,
+                       self.fault_sets, self.placement, self.pad_fraction,
+                       self.grant_form, occ, self.capacity, self.superstep,
+                       loop="eager" if self.shards > 1 else sweep.loop)
+
+
+def _advance(chunks: list, keys, t: int, real: int, reset_at: int, K: int,
+             loop: str, shards: int = 1, keep: bool = True) -> tuple:
+    """Advance a dispatch's chunks `real` cycles from absolute cycle `t`
+    (`keys` ``[Bp, 2]`` the lanes' keys there): one key chain for every
+    chunk, each chunk issued before any is read.  Lane rows of channel
+    shards run `_run_sharded`; a chunk runs `run_steps` on the eager loop,
+    else its K graph and a K = 1 graph for a tail.  `keep` (a window)
+    copies each graph's state back out; without it (a one-shot run) only
+    the counters leave.  Returns (the keys after `real` cycles, each
+    chunk's counters, graphs captured here, their capture seconds)."""
+    keys, subs = key_chain(keys, real)
+    if shards > 1:
+        return keys, _run_sharded(chunks, t, reset_at, subs), 0, 0.0
+    stats, made, capture_s = [], 0, 0.0
+    main = real - real % K
+    for ch in chunks:
+        sub = subs[:, ch.lo:ch.hi].to(ch.device)
+        out = None
+        with _on(ch.device):
+            if loop == "eager":
+                ch.state = run_steps(ch.step, t, sub, reset_at, ch.state,
+                                     ch.rates, ch.lanes)
+                stats.append(ch.state.stats)
+                continue
+            for k, lo, hi in ((K, 0, main), (1, main, real)):
+                if lo == hi:
+                    continue
+                graph, captured = graphs.graph_for(ch.step, k, ch.state,
+                                                   ch.rates, ch.lanes)
+                if captured:
+                    made, capture_s = made + 1, capture_s + graph.capture_s
+                args = (ch.state, ch.rates, ch.lanes, reset_at, sub[lo:hi],
+                        t + lo)
+                if keep or hi < real:
+                    graph.advance(*args)
+                else:
+                    out = graph.run(*args)
+        stats.append(ch.state.stats if out is None else out)
+    return keys, stats, made, capture_s
 
 
 class _PendingLanes:
@@ -400,16 +411,15 @@ class _PendingLanes:
     the counters, builds the per-lane `SimResult`s, and escalates a
     compact run whose live set outgrew its rung."""
 
-    def __init__(self, sweep, stats, plan, t0, run_capture_s):
-        self._sweep, self._stats, self._plan = sweep, stats, plan
+    def __init__(self, stats, plan, t0, run_capture_s):
+        self._stats, self._plan = stats, plan
         self._t0, self._run_capture_s = t0, run_capture_s
 
     def finish(self) -> LaneRun:
         stats = _host_stats(self._stats)
         wall = time.perf_counter() - self._t0 - self._run_capture_s
-        sweep, cfg, plan = self._sweep, self._sweep.cfg, self._plan
-        B = len(plan.lanes)
-        occ = int(stats.occ_peak[:B].max())
+        sweep, plan = self._plan.sweep, self._plan
+        occ = int(stats.occ_peak[:plan.num_lanes].max())
         if plan.capacity and occ > plan.capacity:
             # capacity breach: every cycle after the crossing arbitrated
             # over a TRUNCATED active set, so nothing of this run is kept.
@@ -417,7 +427,7 @@ class _PendingLanes:
             # placement; the rerun is deterministic, so its result is the
             # oracle's.  `occ` is exact and the top rung C = N cannot
             # breach.
-            rung = next_rung(plan.rows, occ)
+            rung = next_rung(plan.step.compact_rows, occ)
             sweep._capacity_floor = max(sweep._capacity_floor, rung)
             redo = sweep.run_lanes_async(plan.lanes, device=plan.device,
                                          capacity=rung).finish()
@@ -427,19 +437,7 @@ class _PendingLanes:
                 escalations=redo.escalations + 1,
                 escalation_compiles=(redo.escalation_compiles
                                      + plan.compile_count))
-        results = [finalize(lane_stats(stats, i), cfg, plan.lanes[i][0],
-                            sweep._chips(plan.fault_sets[i]))
-                   for i in range(B)]         # ghost lanes excluded
-        return LaneRun(results, wall, plan.compile_s, plan.compile_count,
-                       plan.fault_sets, plan.placement, plan.pad_fraction,
-                       plan.grant_form, occ, plan.capacity, plan.K,
-                       loop="eager" if plan.shards > 1 else sweep.loop)
-
-
-def _host(v: torch.Tensor) -> np.ndarray:
-    """A host copy of `v` (never a view of a CPU tensor that the session
-    goes on advancing)."""
-    return v.detach().to("cpu", copy=True).numpy()
+        return plan._lane_run(stats, wall, occ)
 
 
 def _host_stats(parts: list) -> SimStats:
@@ -449,22 +447,16 @@ def _host_stats(parts: list) -> SimStats:
                        for k in vars(parts[0])})
 
 
-def _host_state(state: SimState) -> SimState:
-    """A `SimState` of host numpy arrays (`b_pkt` without its sink row)."""
-    return SimState(stats=SimStats(**{k: _host(v) for k, v
-                                      in vars(state.stats).items()}),
-                    **{k: _host(v) for k, v in vars(state).items()
-                       if k != "stats"})
-
-
 def _host_states(states: list) -> SimState:
-    """`_host_state` of chunk states, joined on the lane axis."""
-    parts = [_host_state(s) for s in states]
-    join = lambda get: np.concatenate([get(p) for p in parts])
+    """Chunk states as one `SimState` of host numpy arrays, joined on the
+    lane axis (`b_pkt` without its sink row)."""
+    # host copies: never views of CPU tensors the session goes on advancing
+    join = lambda get: np.concatenate(
+        [get(s).detach().to("cpu", copy=True).numpy() for s in states])
     return SimState(
-        stats=SimStats(**{k: join(lambda p, k=k: getattr(p.stats, k))
-                          for k in vars(parts[0].stats)}),
-        **{k: join(lambda p, k=k: getattr(p, k)) for k in vars(parts[0])
+        stats=SimStats(**{k: join(lambda s, k=k: getattr(s.stats, k))
+                          for k in vars(states[0].stats)}),
+        **{k: join(lambda s, k=k: getattr(s, k)) for k in vars(states[0])
            if k != "stats"})
 
 
@@ -474,29 +466,16 @@ def _snapshot_signature(state) -> tuple:
         dt = (v.dtype if isinstance(v, np.ndarray)
               else torch.empty(0, dtype=v.dtype).numpy().dtype)
         return tuple(v.shape), str(dt)
-    out = [(k, sig(v)) for k, v in vars(state).items() if k != "stats"]
-    out += [(f"stats.{k}", sig(v)) for k, v in vars(state.stats).items()]
-    return tuple(out)
+    return tuple((k, sig(v)) for k, v in graphs._leaves(state).items())
 
 
 def _load_state(state: SimState, host: SimState, lo: int = 0) -> None:
     """Copy the lanes ``[lo, lo + B)`` of a host snapshot into the device
     buffers of `state` (B lanes)."""
     B = state.b_head.shape[0]
-    put = lambda dst, src: dst.copy_(torch.as_tensor(
-        np.asarray(src)[lo:lo + B]))
-    for k, v in vars(state).items():
-        if k != "stats":
-            put(v, getattr(host, k))
-    for k, v in vars(state.stats).items():
-        put(v, getattr(host.stats, k))
-
-
-def _lanes_on(lane_data: dict, lo: int, hi: int,
-              device: torch.device) -> dict:
-    """Lanes ``[lo, hi)`` of `lane_data` on physical `device` (views where
-    they are already there; a shared lane stays a stride-0 view)."""
-    return {k: to_device(v[lo:hi], device) for k, v in lane_data.items()}
+    src = graphs._leaves(host)
+    for k, v in graphs._leaves(state).items():
+        v.copy_(torch.as_tensor(np.asarray(src[k])[lo:lo + B]))
 
 
 def _pad_lanes(rates, keys, lane_data, pad: int):
@@ -515,7 +494,7 @@ def _pad_lanes(rates, keys, lane_data, pad: int):
     return rates, keys, lane_data
 
 
-class LaneSession:
+class LaneSession(_Dispatch):
     """A paused, resumable lane dispatch advanced window by window
     (`BatchedSweep.start_lanes`).
 
@@ -528,25 +507,9 @@ class LaneSession:
     `export()` snapshots the dynamic state to host numpy arrays, the
     chunks joined; `start_lanes(..., restore=snapshot)` resumes from it
     bit for bit, since the state, the keys and the cycle are the whole of
-    it."""
-
-    def __init__(self, sweep, lane_triples, fault_sets, window, total,
-                 cycle, chunks, keys, step, superstep, placement,
-                 pad_fraction, grant_form):
-        self.sweep = sweep
-        self.lane_triples = lane_triples
-        self.fault_sets = fault_sets
-        self.window, self.total, self.cycle = window, total, cycle
-        self.chunks, self.keys = chunks, keys
-        self.step, self.superstep = step, superstep
-        self.placement = placement
-        self.pad_fraction = pad_fraction
-        self.grant_form = grant_form
-        self.capacity = getattr(step, "compact_capacity", 0)
-        self.num_lanes = len(lane_triples)
-        # the graphs `start_lanes` made for the session (captures on
-        # CUDA, static buffers on the CPU) and their seconds
-        self.compile_s, self.compile_count = 0.0, 0
+    it.  `compile_count` and `compile_s` are the graphs `start_lanes`
+    made for it (captures on CUDA, static buffers on the CPU) and their
+    seconds."""
 
     def done(self) -> bool:
         return self.cycle >= self.total
@@ -555,40 +518,15 @@ class LaneSession:
         """Run one window (`window` cycles, clipped at the budget) on
         every chunk, each issued before any is read; returns the new
         absolute cycle."""
-        if self.done():
-            return self.cycle
-        real = min(self.window, self.total - self.cycle)
-        keys, subs = _key_chain_seq(self.keys, real)
-        reset_at = self.sweep.cfg.warmup
-        for ch in self.chunks:
-            with _on(ch.device):
-                self._advance_chunk(ch, subs[:, ch.lo:ch.hi].to(ch.device),
-                                    real, reset_at)
-        self.keys = keys[real]
-        self.cycle += real
+        if not self.done():
+            self._run(min(self.window, self.total - self.cycle))
         return self.cycle
-
-    def _advance_chunk(self, ch, subs, real, reset_at) -> None:
-        if self.sweep.loop == "eager":
-            ch.state = run_steps(ch.step, self.cycle, subs, reset_at,
-                                 ch.state, ch.rates, ch.lanes)
-            return
-        main = real - real % self.superstep
-        t = self.cycle
-        for k, n in ((self.superstep, main), (1, real - main)):
-            if n:
-                graph, _ = graphs.graph_for(ch.step, k, ch.state, ch.rates,
-                                            ch.lanes)
-                graph.advance(ch.state, ch.rates, ch.lanes, reset_at,
-                              subs[t - self.cycle:t - self.cycle + n], t)
-                t += n
 
     def stats_host(self) -> SimStats:
         """The per-lane counters as host numpy arrays (leading axis the
         padded lane count; the real lanes come first)."""
-        return SimStats(**{k: np.concatenate(
-            [_host(getattr(ch.state.stats, k)) for ch in self.chunks])
-            for k in vars(self.chunks[0].state.stats)})
+        stats = _host_stats([ch.state.stats for ch in self.chunks])
+        return SimStats(**{k: v.numpy() for k, v in vars(stats).items()})
 
     def lane_stats(self, i: int) -> SimStats:
         """Real lane i's current counters (host)."""
@@ -607,8 +545,7 @@ class LaneSession:
             raise ValueError(
                 f"session at cycle {self.cycle}/{self.total}: advance() "
                 f"to the full budget before finish()")
-        stats = SimStats(**{k: torch.as_tensor(v)
-                            for k, v in vars(self.stats_host()).items()})
+        stats = _host_stats([ch.state.stats for ch in self.chunks])
         occ = int(stats.occ_peak[:self.num_lanes].max())
         if self.capacity and occ > self.capacity:
             # a session cannot escalate: its snapshots and streamed stats
@@ -618,15 +555,7 @@ class LaneSession:
                 f"set peaked at {occ} rows — windowed sessions cannot "
                 f"re-dispatch at a larger ladder rung mid-run; rerun "
                 f"with REPRO_COMPACT_CAP>={occ} (or step_impl='fused')")
-        cfg, sweep = self.sweep.cfg, self.sweep
-        results = [finalize(lane_stats(stats, i), cfg,
-                            self.lane_triples[i][0],
-                            sweep._chips(self.fault_sets[i]))
-                   for i in range(self.num_lanes)]
-        return LaneRun(results, 0.0, self.compile_s, self.compile_count,
-                       self.fault_sets, self.placement, self.pad_fraction,
-                       self.grant_form, occ, self.capacity, self.superstep,
-                       loop=sweep.loop)
+        return self._lane_run(stats, 0.0, occ)
 
 
 class BatchedSweep:
@@ -777,98 +706,18 @@ class BatchedSweep:
             return lane_mesh(1, self.device), 1
         return [[self.device]], 1
 
-    def _plan(self, lanes, device=None, capacity=None) -> _LanePlan:
-        """Prepare one dispatch, place it (`_placement`) and, on the graph
-        loop, capture each chunk's graph (a cache hit captures nothing).
-        `capacity` pins the compact step's ladder rung (the escalation
-        rerun re-enters here with the next rung up); without it a sweep
-        that escalated before starts at that rung."""
-        lanes, rates, keys, lane_data, fsets = self._prepare_lanes(lanes)
-        cfg = self.cfg
-        B = len(lanes)
-        cycles = cfg.warmup + cfg.measure
-        impl = getattr(cfg, "step_impl", "jnp")
-        rows, shards = self._placement(B, cycles, device, impl == "fused")
-        L = len(rows)
-        pad = (-B) % L
-        ch_pad = fused_pad(self.net, shards)[0] if shards > 1 else 0
-        E = self.net.num_channels
-        pad_fraction = 1.0 - (B * E) / ((B + pad) * (E + ch_pad))
-        placement = ("single" if device is not None or len(rows[0]) * L == 1
-                     else f"lanes:{L},shards:{shards}" if shards > 1
-                     else f"lanes:{L}")
-        rates, keys, lane_data = _pad_lanes(rates, keys, lane_data, pad)
-        c = (B + pad) // L
-        gform = (grant_form(self.net, cfg, shards)
-                 if impl in ("fused", "compact") else "two_pass")
-        K = (1 if self.loop == "eager" or shards > 1
-             else superstep(cycles))
-        compile_s, compiles, chunks = 0.0, 1, []
-        for j, row in enumerate(rows):
-            lo, hi = j * c, (j + 1) * c
-            step = self._step_for(row, shards, capacity)
-            if shards > 1:
-                lane_j = {k: v[lo:hi] for k, v in lane_data.items()}
-                chunks.append(_Chunk(
-                    step.physical[0], lo, hi, step,
-                    step.make_states((c,)), step.place(rates[lo:hi]),
-                    step.place(lane_j)))
-                continue
-            dev = physical_device(row[0])
-            chunks.append(_Chunk(
-                dev, lo, hi, step,
-                make_state(self.net, cfg, self.NV, batch=(c,), device=dev),
-                rates[lo:hi].to(dev), _lanes_on(lane_data, lo, hi, dev)))
-        step = chunks[0].step
-        form = lane_form(step, chunks[0].device) if shards == 1 else \
-            "lockstep"
-        if self.loop == "graph" and shards == 1 and any(
-                ch.device.type == "cuda" for ch in chunks):
-            compiles = 0
-            for ch in chunks:
-                st0, r, _, fl = (
-                    (ch.state, ch.rates, None, ch.lanes)
-                    if form == "lockstep"
-                    else _lane_args(0, ch.state, ch.rates, keys, ch.lanes))
-                with _on(ch.device):
-                    graph, captured = graphs.graph_for(ch.step, K, st0, r,
-                                                       fl)
-                if captured:
-                    compile_s += graph.capture_s
-                    compiles += 1
-        return _LanePlan(lanes, fsets, keys, chunks, step, K, form,
-                         compile_s, compiles, gform, placement,
-                         pad_fraction, device, shards)
-
-    def warm_compile(self, lanes, device=None) -> _LanePlan:
-        """Prepare the lane grid, placed on `device` or spread (see
-        `_plan`), and capture its graphs without running it (nothing to
-        capture on the CPU or the eager loop); hand the plan to
-        `run_lanes_async(plan=...)`."""
-        return self._plan(lanes, device=device)
-
-    def start_lanes(self, lanes, *, window: int, device=None,
-                    pad_to: int | None = None, force_stack: bool = False,
-                    epochs: int | None = None,
-                    restore: dict | None = None) -> "LaneSession":
-        """Open a windowed `LaneSession` over `lanes` instead of running
-        the whole cycle budget at once.
-
-        `window` is the cycles a window advances (the last one only the
-        cycles left).  `device` pins the session to one device; with None
-        its lanes spread as a dispatch's do (`_placement`, channel shards
-        ignored, as the reference's sessions ignore them).  `pad_to`
-        ghost-pads the lane axis to a fixed batch (rate-0 lanes, dropped
-        from the results) so packs of one signature share one graph;
-        `force_stack` keeps the fault axis stacked and `epochs` pins the
-        schedule form padded to that many epochs, for the same reason.
-        `restore` resumes from an earlier session's `export()` (same
-        lanes, padding, placement and config), bit for bit.  The session's
-        graphs are made here: K = `superstep(window)` and, when some
-        window's length is not a multiple of K, a K = 1 graph for its
-        tail."""
-        if window < 1:
-            raise ValueError(f"window must be >= 1 cycles, got {window}")
+    def _dispatch(self, lanes, *, device=None, capacity=None, window=None,
+                  pad_to=None, force_stack=False, epochs=None,
+                  restore=None) -> _Dispatch:
+        """One dispatch of `lanes`: prepared (`_prepare_lanes`), placed
+        (`_placement`), ghost-padded to a multiple of the lane rows, cut
+        into one chunk a row and, on the graph loop, each chunk's graphs
+        made.  `capacity` pins the compact step's ladder rung (without
+        it: the rung this sweep escalated to).  With no `window` it is a
+        one-shot run (channel shards honoured; `compile_count` the
+        captures, 1 on the CPU and the eager loop); with one it is a
+        `LaneSession` (the other arguments are `start_lanes`'), whose
+        `compile_count` is every graph made, on any device."""
         lanes, rates, keys, lane_data, fsets = self._prepare_lanes(
             lanes, force_stack=force_stack, epochs=epochs)
         cfg = self.cfg
@@ -877,14 +726,18 @@ class BatchedSweep:
             raise ValueError(f"pad_to={pad_to} < {B} lanes")
         target = max(B, pad_to or 0)
         total = cfg.warmup + cfg.measure
-        rows, _ = self._placement(target, total, device, False)
+        impl = getattr(cfg, "step_impl", "jnp")
+        rows, shards = self._placement(target, total, device,
+                                       impl == "fused" and window is None)
         L = len(rows)
         Bp = target + (-target) % L
+        ch_pad = fused_pad(self.net, shards)[0] if shards > 1 else 0
+        E = self.net.num_channels
+        pad_fraction = 1.0 - (B * E) / (Bp * (E + ch_pad))
+        placement = ("single" if len(rows[0]) * L == 1
+                     else f"lanes:{L},shards:{shards}" if shards > 1
+                     else f"lanes:{L}")
         rates, keys, lane_data = _pad_lanes(rates, keys, lane_data, Bp - B)
-        placement = "single" if L == 1 else f"lanes:{L}"
-        impl = getattr(cfg, "step_impl", "jnp")
-        gform = (grant_form(self.net, cfg) if impl in ("fused", "compact")
-                 else "two_pass")
         cycle = 0
         if restore is not None:
             want = make_state(self.net, cfg, self.NV, batch=(Bp,),
@@ -904,71 +757,98 @@ class BatchedSweep:
         c = Bp // L
         chunks = []
         for j, row in enumerate(rows):
+            lo, hi = j * c, (j + 1) * c
+            step = self._step_for(row, shards, capacity)
+            if shards > 1:
+                lane_j = {k: v[lo:hi] for k, v in lane_data.items()}
+                chunks.append(_Chunk(
+                    step.physical[0], lo, hi, step,
+                    step.make_states((c,)), step.place(rates[lo:hi]),
+                    step.place(lane_j)))
+                continue
             dev = physical_device(row[0])
-            # a session cannot escalate mid-run (`finish` raises on a
-            # breach), so it starts at the highest rung this sweep has
-            # had to escalate to
-            step = self._step_for(row)
             state = make_state(self.net, cfg, self.NV, batch=(c,),
                                device=dev)
             if restore is not None:
-                _load_state(state, restore["state"], j * c)
-            chunks.append(_Chunk(dev, j * c, (j + 1) * c, step, state,
-                                 rates[j * c:(j + 1) * c].to(dev),
-                                 _lanes_on(lane_data, j * c, (j + 1) * c,
-                                           dev)))
-        K = 1 if self.loop == "eager" else superstep(window)
-        session = LaneSession(self, lanes, fsets, window, total, cycle,
-                              chunks, keys, chunks[0].step, K, placement,
-                              1.0 - B / Bp, gform)
-        if self.loop == "graph":
-            # every window but the last is `window` cycles, a multiple of K
-            before, t0 = graphs.builds(), time.perf_counter()
-            tail = (total - cycle) % window % K
-            for ch in chunks:
-                with _on(ch.device):
-                    for k in ((K, 1) if K > 1 and tail else (K,)):
-                        graphs.graph_for(ch.step, k, ch.state, ch.rates,
-                                         ch.lanes)
-            session.compile_count = graphs.builds() - before
-            session.compile_s = (time.perf_counter() - t0
-                                 if session.compile_count else 0.0)
-        return session
+                _load_state(state, restore["state"], lo)
+            # views where the lanes are already on `dev`; a shared lane
+            # stays a stride-0 view
+            chunks.append(_Chunk(dev, lo, hi, step, state,
+                                 rates[lo:hi].to(dev),
+                                 {k: to_device(v[lo:hi], dev)
+                                  for k, v in lane_data.items()}))
+        K = (1 if self.loop == "eager" or shards > 1
+             else superstep(window or total))
+        gform = (grant_form(self.net, cfg, shards)
+                 if impl in ("fused", "compact") else "two_pass")
+        d = (_Dispatch if window is None else LaneSession)(
+            self, lanes, fsets, keys, cycle, chunks, K, shards, gform,
+            placement, pad_fraction, device, window)
+        d.compile_count = 0 if window else 1
+        if self.loop != "graph" or shards > 1:
+            return d
+        # every window but the last is `window` cycles, a multiple of K
+        tail = (total - cycle) % d.window % K
+        builds, t0 = graphs.builds(), time.perf_counter()
+        for ch in chunks:
+            with _on(ch.device):
+                for k in ((K, 1) if K > 1 and tail else (K,)):
+                    graphs.graph_for(ch.step, k, ch.state, ch.rates,
+                                     ch.lanes)
+        if window or chunks[0].device.type == "cuda":
+            d.compile_count = graphs.builds() - builds
+            d.compile_s = (time.perf_counter() - t0 if d.compile_count
+                           else 0.0)
+        return d
+
+    def warm_compile(self, lanes, device=None) -> _Dispatch:
+        """Prepare the lane grid, placed on `device` or spread (see
+        `_dispatch`), and capture its graphs without running it (nothing
+        to capture on the CPU or the eager loop); hand the plan to
+        `run_lanes_async(plan=...)`."""
+        return self._dispatch(lanes, device=device)
+
+    def start_lanes(self, lanes, *, window: int, device=None,
+                    pad_to: int | None = None, force_stack: bool = False,
+                    epochs: int | None = None,
+                    restore: dict | None = None) -> "LaneSession":
+        """Open a windowed `LaneSession` over `lanes` instead of running
+        the whole cycle budget at once.
+
+        `window` is the cycles a window advances (the last one only the
+        cycles left).  `device` pins the session to one device; with None
+        its lanes spread as a dispatch's do (`_placement`, channel shards
+        ignored, as the reference's sessions ignore them).  `pad_to`
+        ghost-pads the lane axis to a fixed batch (rate-0 lanes, dropped
+        from the results) so packs of one signature share one graph;
+        `force_stack` keeps the fault axis stacked and `epochs` pins the
+        schedule form padded to that many epochs, for the same reason.
+        `restore` resumes from an earlier session's `export()` (same
+        lanes, padding, placement and config), bit for bit.  The graphs
+        are made here: K = `superstep(window)`, and K = 1 for a tail."""
+        if window < 1:
+            raise ValueError(f"window must be >= 1 cycles, got {window}")
+        return self._dispatch(lanes, device=device, window=window,
+                              pad_to=pad_to, force_stack=force_stack,
+                              epochs=epochs, restore=restore)
 
     def run_lanes_async(self, lanes=None, device=None, capacity=None,
-                        plan: _LanePlan | None = None) -> _PendingLanes:
+                        plan: _Dispatch | None = None) -> _PendingLanes:
         """Issue the lane grid's cycle loop on every chunk without waiting
-        for its counters (`device` and `capacity` as in `_plan`; `plan`
-        runs a `warm_compile` plan instead of preparing anew)."""
+        for its counters (`device` and `capacity` as in `_dispatch`;
+        `plan` runs a `warm_compile` plan instead of preparing anew)."""
         if plan is None:
-            plan = self._plan(lanes, device=device, capacity=capacity)
+            plan = self._dispatch(lanes, device=device, capacity=capacity)
         if plan.used:
             raise ValueError("a lane plan is single-use: warm_compile a "
                              "fresh one")
         plan.used = True
-        cfg = self.cfg
-        cycles = cfg.warmup + cfg.measure
         t0 = time.perf_counter()
-        subs = _key_chain(plan.keys, cycles)         # on the CPU, [c, Bp, 2]
-        if plan.shards > 1:
-            stats, made, capture_s = _run_sharded(plan.chunks, cycles,
-                                                  cfg.warmup, subs), 0, 0.0
-        else:
-            scan = (_scan_lanes if plan.form == "lockstep"
-                    else _scan_lanes_seq)
-            stats, made, capture_s = [], 0, 0.0
-            for ch in plan.chunks:
-                with _on(ch.device):
-                    st, m, cs = scan(ch.step, cycles, cfg.warmup, plan.K,
-                                     self.loop, ch.state, ch.rates, None,
-                                     ch.lanes,
-                                     subs=subs[:, ch.lo:ch.hi].to(ch.device))
-                stats.append(st)
-                made, capture_s = made + m, capture_s + cs
+        stats, made, capture_s = plan._run(plan.total, keep=False)
         plan.chunks = None
         plan.compile_count += made
         plan.compile_s += capture_s
-        return _PendingLanes(self, stats, plan, t0, capture_s)
+        return _PendingLanes(stats, plan, t0, capture_s)
 
     def run_lanes(self, lanes, device=None) -> LaneRun:
         """One batched run over a list of `(offered_per_chip, seed, faults)`
@@ -989,12 +869,7 @@ class BatchedSweep:
                 f"sweep needs >= 1 rate and >= 1 seed (got {R} rates, "
                 f"{S} seeds)")
         run = self.run_lanes([(r, s, None) for r in rates for s in seeds])
-        flat = run.results
-        results = [[flat[i * S + j] for j in range(S)] for i in range(R)]
-        return SweepResult(rates=rates, seeds=seeds, results=results,
-                           compile_count=run.compile_count,
-                           wall_s=run.wall_s, compile_s=run.compile_s,
-                           **_run_fields(run))
+        return _sweep_result(run, rates, seeds)
 
     def run_faults(self, offered_per_chip: float, fault_grid,
                    seeds=None) -> SweepResult:
@@ -1013,40 +888,45 @@ class BatchedSweep:
         run = self.run_lanes(
             [(offered_per_chip, seeds[j], rows[i][j])
              for i in range(F) for j in range(S)])
-        flat, fsets = run.results, run.fault_sets
-        results = [[flat[i * S + j] for j in range(S)] for i in range(F)]
+        fsets = run.fault_sets
         fracs = [float(np.mean(
             [0.0 if f is None
              else final_faults(f).frac_links_failed(self.net)
              for f in fsets[i * S:(i + 1) * S]])) for i in range(F)]
-        return SweepResult(rates=[offered_per_chip] * F, seeds=seeds,
-                           results=results, compile_count=run.compile_count,
-                           wall_s=run.wall_s, compile_s=run.compile_s,
-                           fault_fracs=fracs, **_run_fields(run))
+        return _sweep_result(run, [offered_per_chip] * F, seeds,
+                             fault_fracs=fracs)
 
 
-def _run_sharded(chunks: list, cycles: int, reset_at: int, subs) -> list:
+def _run_sharded(chunks: list, t0: int, reset_at: int, subs) -> list:
     """The channel-sharded dispatch's eager loop: every lane row's
-    `ShardedStep` one host-int cycle at a time, the rows interleaved
-    cycle by cycle (so rows on different cards run together), the warmup
-    reset on every shard.  Returns each row's lead-shard counters."""
+    `ShardedStep` one host-int cycle at a time from cycle `t0`, the rows
+    interleaved cycle by cycle (so rows on different cards run together),
+    the warmup reset on every shard.  Returns each row's lead-shard
+    counters."""
     keys = [ch.step.place(subs[:, ch.lo:ch.hi]) for ch in chunks]
-    for t in range(cycles):
+    for i in range(int(subs.shape[0])):
+        t = t0 + i
         for ch, k in zip(chunks, keys):
-            ch.state, _ = ch.step(ch.state, (t, [x[t] for x in k],
+            ch.state, _ = ch.step(ch.state, (t, [x[i] for x in k],
                                              ch.rates, ch.lanes))
             if t == reset_at:
                 ch.state = ch.step.reset_stats(ch.state)
     return [ch.state[0].stats for ch in chunks]
 
 
-def _run_fields(run: LaneRun) -> dict:
-    """The `LaneRun` telemetry a `SweepResult` carries over."""
-    return dict(placement=run.placement, pad_fraction=run.pad_fraction,
-                grant_form=run.grant_form,
-                occupancy_peak=run.occupancy_peak,
-                compact_capacity=run.compact_capacity,
-                superstep=run.superstep,
-                escalations=run.escalations,
-                escalation_compiles=run.escalation_compiles,
-                loop=run.loop)
+def _sweep_result(run: LaneRun, rates: list, seeds: list,
+                  **fields) -> SweepResult:
+    """A run's lanes (row-major over `rates` x `seeds`) as a
+    `SweepResult`, with the `LaneRun` telemetry it carries over."""
+    S = len(seeds)
+    results = [run.results[i * S:(i + 1) * S] for i in range(len(rates))]
+    return SweepResult(
+        rates=rates, seeds=seeds, results=results,
+        compile_count=run.compile_count, wall_s=run.wall_s,
+        compile_s=run.compile_s, placement=run.placement,
+        pad_fraction=run.pad_fraction, grant_form=run.grant_form,
+        occupancy_peak=run.occupancy_peak,
+        compact_capacity=run.compact_capacity, superstep=run.superstep,
+        escalations=run.escalations,
+        escalation_compiles=run.escalation_compiles, loop=run.loop,
+        **fields)

@@ -31,7 +31,7 @@ from .engine.arbitrate import GRANT_IMPLS
 from .engine.state import build_lane, make_state, resolve_device
 from .engine.step import STEP_IMPLS, make_step
 from .engine.stats import finalize, lane_stats
-from .engine.sweep import (BatchedSweep, SweepResult, _scan_lanes,
+from .engine.sweep import (BatchedSweep, SweepResult, _run_pinned,
                            offered_to_rate_pkt, superstep)
 
 
@@ -144,10 +144,9 @@ class Simulator:
         rate_pkt = torch.tensor([rate], dtype=torch.float32,
                                 device=self.device)
         cycles = cfg.warmup + cfg.measure
-        stats, _, _ = _scan_lanes(self.step, cycles, cfg.warmup,
-                                  superstep(cycles), self.loop, state0,
-                                  rate_pkt, key.to(self.device),
-                                  share_lanes(lane, 1))
+        stats = _run_pinned(self.step, cycles, cfg.warmup,
+                            superstep(cycles), self.loop, state0, rate_pkt,
+                            key, share_lanes(lane, 1))
         return finalize(lane_stats(stats, 0), cfg, offered_per_chip, chips)
 
     def sweep(self, rates, seeds=None) -> list[SimResult]:

@@ -26,7 +26,7 @@ launched kernels ends while they still run; the kernels' own time is the
 profiler's attribution of them to the range.
 
 The names in use: `sweep.key_chain` (the host's subkey chain of a
-dispatch or window, `engine.step._key_chain_seq`), `graph.copy` (a
+dispatch or window, `engine.step.key_chain`), `graph.copy` (a
 `CycleGraph`'s inputs copied in and its results copied out),
 `graph.replays` (a run's or window's replay loop) and the cycle step's
 phases `step.inject`, `step.requests`, `step.grant`, `step.commit`

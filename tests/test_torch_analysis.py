@@ -167,7 +167,7 @@ def test_compile_prediction_equals_the_runner_s_builds(name):
     # graph_for's key: (step, K, lane count, state sig, lane sig, device)
     real = collections.Counter(k[1:5] for k in graphs._GRAPHS)
     model = collections.Counter(
-        PC.grid_key(t, r, f, spec.axes, "cpu") for t in spec.topologies
+        PC.grid_key(t, r, f, spec.axes) for t in spec.topologies
         for r in spec.routings for f in spec.traffics)
     assert real == model
 

@@ -5,12 +5,12 @@ false: a CUDA graph has no CPU mode).
 A captured run equals the eager loop bit for bit for all three steps at
 K in {1, 2, 4} with cold and warm faults and the reaper; a second sweep
 captures nothing; a compact escalation re-captures once; a capture that
-fails raises and falls back to nothing; the sequential lane form and
-`Simulator.run` replay graphs too; windowed sessions replay them (a
-tail shorter than K on a K = 1 graph) and equal the eager loop, and two
-sessions of one signature interleave on one graph; n replays of a graph
-holding the netsim coop kernel equal n eager calls (the kernel keeps its
-call parity and barrier count on the device); and every netsim kernel
+fails raises and falls back to nothing; `Simulator.run` replays a graph
+too; windowed sessions replay them (a tail shorter than K on a K = 1
+graph) and equal the eager loop, and two sessions of one signature
+interleave on one graph; n replays of a graph holding the netsim coop
+kernel equal n eager calls (the kernel keeps its call parity and barrier
+count on the device); and every netsim kernel
 counts its own launches on the device, replays included, while the
 wrappers' host counts tick only where they launch or record.
 
@@ -28,7 +28,6 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.core import topology as T
 from repro_torch.core import traffic
-from repro_torch.core.engine import make_state
 from repro_torch.core.engine import sweep as SW
 from repro_torch.core.engine.sweep import BatchedSweep
 from repro_torch.core.simulator import SimConfig, Simulator
@@ -145,22 +144,9 @@ def test_launch_counts_follow_replays(cuda, net, monkeypatch):
 
 
 def test_sequential_form_and_run_replay_graphs(cuda, net):
+    """`Simulator.run` captures one graph and equals the eager loop."""
     cfg = _cfg("compact")
     sim = Simulator(net, cfg, traffic.uniform(net), device=cuda)
-    sw = sim._batched
-    _, rates, keys, fl, _ = sw._prepare_lanes(
-        [(r, s, f) for r in (0.3, 1.2) for s in (0,)
-         for f in _fault_rows(net)[:2]])
-    keys = keys.to(cuda)
-    cycles = cfg.warmup + cfg.measure
-    fresh = lambda: make_state(net, cfg, sw.NV, batch=(len(rates),),
-                               device=cuda)
-    lock = SW._scan_lanes(sw.step, cycles, cfg.warmup, 2, "graph", fresh(),
-                          rates, keys, fl)[0]
-    seq = SW._scan_lanes_seq(sw.step, cycles, cfg.warmup, 2, "graph",
-                             fresh(), rates, keys, fl)[0]
-    for k, v in vars(lock).items():
-        assert torch.equal(v, getattr(seq, k)), k
     before = SW.compile_counter()
     got = sim.run(0.8, seed=3)
     assert SW.compile_counter() == before + 1

@@ -13,8 +13,9 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro.core.engine.sweep import _key_chain as jax_key_chain
+from repro.core.engine.sweep import _key_chain_seq as jax_key_chain_seq
 from repro_torch import random as jr
-from repro_torch.core.engine.sweep import _key_chain
+from repro_torch.core.engine.step import key_chain
 
 # small tensors: intra-op threads only contend with the other test workers
 torch.set_num_threads(1)
@@ -137,10 +138,19 @@ def test_lane_batched_draws_match_vmap():
 
 
 def test_key_chain():
-    """The per-cycle subkey chain of the sweep, per lane."""
+    """The per-cycle subkey chain of the sweep, per lane, and the key it
+    hands the next window: the reference's `_key_chain` subkeys and the
+    last of its `_key_chain_seq` keys."""
     seeds = (0, 1, 7)
     want = np.stack([_np(jax_key_chain(jax.random.PRNGKey(s), 40))
                      for s in seeds], axis=1)               # [40, B, 2]
-    got = _key_chain(torch.stack([jr.PRNGKey(s) for s in seeds]), 40)
-    assert got.shape == (40, 3, 2)
-    assert (want == got.numpy()).all()
+    want_next = np.stack([_np(jax_key_chain_seq(jax.random.PRNGKey(s),
+                                                40)[0][40]) for s in seeds])
+    keys = torch.stack([jr.PRNGKey(s) for s in seeds])
+    next_keys, subs = key_chain(keys, 40)
+    assert subs.shape == (40, 3, 2) and next_keys.shape == (3, 2)
+    assert (want == subs.numpy()).all()
+    assert (want_next == next_keys.numpy()).all()
+    # no cycles: the keys as they were, no subkeys
+    same, none = key_chain(keys, 0)
+    assert torch.equal(same, keys) and none.shape == (0, 3, 2)

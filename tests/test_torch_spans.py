@@ -18,7 +18,7 @@ torch = pytest.importorskip("torch")
 from repro_torch import spans
 from repro_torch.core import topology as T
 from repro_torch.core import traffic
-from repro_torch.core.engine.step import _key_chain
+from repro_torch.core.engine.step import key_chain
 from repro_torch.core.engine.sweep import BatchedSweep
 from repro_torch.core.simulator import SimConfig
 
@@ -97,7 +97,7 @@ def test_each_aten_op_of_a_cycle_lies_under_one_phase(net, impl):
     session = sweep.start_lanes(LANES, window=CFG.warmup)
     session.advance()                     # traffic in flight
     ch = session.chunks[0]
-    sub = _key_chain(session.keys, 1)[0]
+    sub = key_chain(session.keys, 1)[1][0]
     with torch.profiler.profile(
             activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
         ch.step(ch.state, (session.cycle, sub, ch.rates, ch.lanes))
@@ -121,7 +121,7 @@ def test_misroute_opens_once_a_cycle_inside_inject(net, impl, route_mode):
     session = sweep.start_lanes(LANES, window=CFG.warmup)
     session.advance()
     ch = session.chunks[0]
-    subs = _key_chain(session.keys, 2)
+    subs = key_chain(session.keys, 2)[1]
     with torch.profiler.profile(
             activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
         for i, sub in enumerate(subs):
@@ -178,7 +178,7 @@ def test_each_kernel_of_a_cycle_lies_under_one_phase_on_the_card(net, impl):
     session = sweep.start_lanes(LANES, window=CFG.warmup)
     session.advance()
     ch = session.chunks[0]
-    sub = _key_chain(session.keys, 1)[0].to(dev)
+    sub = key_chain(session.keys, 1)[1][0].to(dev)
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]

@@ -1,15 +1,18 @@
-"""K-cycle supersteps, the cycle index as a device tensor, the
-sequential-lane form and the graph runner's static buffers, on the CPU.
+"""K-cycle supersteps, the cycle index as a device tensor, the sweep's
+one dispatch (a one-shot run against windowed sessions) and the graph
+runner's static buffers, on the CPU.
 
 The port's three steps at K in {1, 2, 4} give the reference's rows field
 for field on a fault grid with a warm onset at cycle 61 and a warmup
 that K does not divide (62 of 180 cycles), so both land inside a
 superstep (as `tests/test_compact_step.py` holds the reference); K = 7
 does not divide the run and falls back to 1.  A step given a 0-d tensor
-`t` equals the step given the int, state for state; the sequential lane
-form equals the lockstep one; and `engine.graphs.CycleGraph`, the
-runner the card replays as a CUDA graph, run eagerly here on its static
-buffers, equals the eager loop across runs that reuse it.
+`t` equals the step given the int, state for state; `run_lanes` equals a
+session of one window and of several uneven windows (a K = 1 tail
+included), and both give the reference's `run_scan_batched` counters;
+and `engine.graphs.CycleGraph`, the runner the card replays as a CUDA
+graph, run eagerly here on its static buffers, equals the eager loop
+across runs that reuse it.
 """
 import dataclasses
 
@@ -19,6 +22,9 @@ torch = pytest.importorskip("torch")
 
 from repro.core import topology as JT
 from repro.core import traffic as JTR
+from repro.core.engine import make_state as jax_make_state
+from repro.core.engine import run_scan_batched as jax_run_scan_batched
+from repro.core.engine.sweep import BatchedSweep as JBatchedSweep
 from repro.core.engine.sweep import superstep as jax_superstep
 from repro.core.simulator import SimConfig as JConfig
 from repro.core.simulator import Simulator as JSimulator
@@ -29,7 +35,7 @@ from repro_torch.core.engine import (build_lane, graphs, make_state,
                                      make_step, stack_lanes)
 from repro_torch.core.engine import sweep as SW
 from repro_torch.core.engine.state import with_sink_row
-from repro_torch.core.engine.step import _key_chain, run_scan
+from repro_torch.core.engine.step import key_chain, run_scan
 from repro_torch.core.routing import share_lanes
 from repro_torch.core.simulator import SimConfig, Simulator
 
@@ -145,7 +151,7 @@ def test_tensor_t_equals_int_t(nets, impl):
     with the reaper on: the step given t as a 0-d int32 tensor equals the
     step given the int."""
     step, state, rates, keys, fl = _fresh(nets, impl)
-    subs = _key_chain(keys, 90)
+    subs = key_chain(keys, 90)[1]
     # the steps write b_pkt and s_pkt in place: b runs on copies
     a = state
     b = state.replace(b_pkt=_clone_b(state.b_pkt), s_pkt=state.s_pkt.clone())
@@ -157,21 +163,70 @@ def test_tensor_t_equals_int_t(nets, impl):
             assert torch.equal(v, _leaves(b)[k]), (t, k)
 
 
+# (rate, seed) of the one-dispatch lanes, one to a row of the fault grid
+DISPATCH_LANES = ((0.8, 0), (1.2, 1), (1.6, 2))
+
+
+def _dispatch_lanes(top, net):
+    return [(r, s, f) for (r, s), f in zip(DISPATCH_LANES, _grid(top, net))]
+
+
+@pytest.fixture(scope="module")
+def scan_reference(nets):
+    """The reference's `run_scan_batched` counters of the dispatch lanes
+    for one step, each step run once."""
+    jn, _ = nets
+    done = {}
+
+    def counters(impl):
+        if impl not in done:
+            cfg = _cfg(JConfig, impl)
+            sw = JBatchedSweep(jn, cfg, JTR.uniform(jn))
+            _, rates, keys, fl, per_lane, _ = sw._prepare_lanes(
+                _dispatch_lanes(JT, jn))
+            out = jax_run_scan_batched(
+                sw.step, WARMUP + MEASURE, WARMUP,
+                jax_make_state(jn, cfg, sw.NV, (len(DISPATCH_LANES),)),
+                rates, keys, fl, per_lane)
+            done[impl] = out.stats
+        return done[impl]
+
+    return counters
+
+
+@pytest.mark.parametrize("window,k", [(180, 4), (37, 1), (24, 8)])
 @pytest.mark.parametrize("impl", IMPLS)
-def test_sequential_form_equals_lockstep(nets, impl):
+def test_one_shot_run_is_a_session_of_one_window(nets, scan_reference,
+                                                 impl, window, k,
+                                                 monkeypatch):
+    """`run_lanes` against a session over the same lanes (pristine, cold
+    and warm): in one window (K = 4), in uneven windows of 37 (the last
+    32), and in windows of 24 at K = 8 (the last, 12 cycles: one K = 8
+    superstep, then 4 cycles on a K = 1 graph from cycle 176).  The
+    session's results equal the one-shot run's, and its counters the
+    reference's `run_scan_batched`."""
+    monkeypatch.setenv("REPRO_SUPERSTEP", str(k))
     _, pn = nets
-    step, state, rates, keys, fl = _fresh(nets, impl, B=3)
-    NV = state.b_head.shape[-1]
-    fresh = lambda: make_state(pn, _cfg(SimConfig, impl), NV, batch=(3,),
-                               device="cpu")
-    lock = SW._scan_lanes(step, SHORT, WARMUP, 4, "graph", fresh(),
-                          rates, keys, fl)[0]
-    seq = SW._scan_lanes_seq(step, SHORT, WARMUP, 4, "graph", fresh(),
-                             rates, keys, fl)[0]
-    for k, v in vars(lock).items():
-        assert torch.equal(v, getattr(seq, k)), k
-    assert SW.lane_form(step, "cpu") == ("sequential" if impl == "compact"
-                                         else "lockstep")
+    sweep = SW.BatchedSweep(pn, _cfg(SimConfig, impl), PTR.uniform(pn),
+                            device="cpu")
+    lanes = _dispatch_lanes(PT, pn)
+    one = sweep.run_lanes(lanes)
+    assert one.escalations == 0
+    assert one.superstep == SW.superstep(WARMUP + MEASURE)
+    session = sweep.start_lanes(lanes, window=window)
+    assert session.superstep == k
+    windows = 0
+    while not session.done():
+        session.advance()
+        windows += 1
+    assert windows == -(-(WARMUP + MEASURE) // window)
+    got = session.stats_host()
+    want = scan_reference(impl)
+    for f in vars(got):
+        assert np.array_equal(getattr(got, f)[:len(lanes)],
+                              np.asarray(getattr(want, f))), f
+    assert [dataclasses.asdict(r) for r in session.finish().results] == \
+        [dataclasses.asdict(r) for r in one.results]
 
 
 @pytest.mark.parametrize("impl", ["jnp", "compact"])
@@ -193,7 +248,8 @@ def test_graph_runner_buffers_equal_superstep_loop(nets, impl):
         graph, captured = graphs.graph_for(step, K, fresh(), rates, fl)
         assert not captured and graph.graph is None
         made.append(graph)
-        got = graph.run(fresh(), rates, fl, WARMUP, _key_chain(keys, cycles))
+        got = graph.run(fresh(), rates, fl, WARMUP,
+                        key_chain(keys, cycles)[1])
         want = run_scan(step, cycles, WARMUP, fresh(), rates, keys,
                         fl).stats
         for k, v in vars(want).items():
