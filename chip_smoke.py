@@ -36,7 +36,9 @@ Phases (any failure ends the run with a nonzero exit):
      the plain version on the card, timed (a launch eager and inside a
      CUDA graph) beside the plain version in a graph and against its
      bound, the larger of its bytes at 3.35 TB/s and its int32 operations
-     at the card's rate (a `[threefry]` line);
+     at the card's rate (a `[threefry]` line), and the key chain of a job
+     (24 lanes x 1,500 cycles, one launch) against the plain chain on the
+     host (a second `[threefry]` line);
 4. the main path on the paper's radix-16 evaluation network (g = 41:
    1,312 chips, 30,176 channels), 2 rates x 2 seeds = 4 lanes through
    `Simulator.sweep_grid`, its cycles replayed as captured CUDA graphs,
@@ -54,7 +56,8 @@ Phases (any failure ends the run with a nonzero exit):
    wrappers' host counts tick only at each capture's warm-up and
    recording; the fused step's record gathers, `head_records`, one dense
    and one picked launch a cycle; the PRNG's draws, `threefry`, one
-   split, one uniform and one randint launch a cycle in every step),
+   split, one uniform and one randint launch a cycle in every step, and
+   one chain launch a run),
    exact packet conservation on every
    lane, and the memory the process holds with the three steps' graphs
    cached;
@@ -429,7 +432,8 @@ def phase_prng(device):
     torch.cuda.synchronize()
     d1 = ops.device_launches()["threefry"]
     got = {k: d1[k] - d0[k] for k in d1}
-    want = dict(split=4, bits=2, uniform=4, randint=4, bernoulli=2)
+    want = dict(split=4, bits=2, uniform=4, randint=4, bernoulli=2,
+                chain=0)
     check(got == want, f"PRNG draws launched {got} != {want}, one a draw")
     print(f"[prng] threefry known answers (torch ops on the card) and "
           f"split/bits/uniform/randint/bernoulli on the threefry kernel, "
@@ -857,20 +861,23 @@ def check_counts(tag, wrapper, kernel, grid, cycles, device, host,
     """Every arbitration of the sweep ran on `kernel` of `wrapper`, and
     every (wrapper, kernel) of `gathers` and of `CYCLE_DRAWS` ran as
     often, as the kernels counted it on the card: each cycle of each run
-    plus each capture's warm-up (`expected_calls`); nothing else on any
-    wrapper.  The host counts ticked where they launched: at each
-    capture's warm-up and recording, never at a replay."""
+    plus each capture's warm-up (`expected_calls`); the key chain once a
+    run (`CHAIN`, eager); nothing else on any wrapper.  The host counts
+    ticked where they launched: at each capture's warm-up and recording,
+    never at a replay, and at each chain."""
     from repro_torch.kernels.netsim import ops
     calls = expected_calls(grid, cycles)
+    runs = 1 + grid.escalations
     captures = grid.compile_count + grid.escalation_compiles
     ran = {(wrapper, kernel), *gathers, *CYCLE_DRAWS}
     for w in ops.WRAPPERS:
-        want = {k: calls if (w, k) in ran else 0
-                for k in ops.WRAPPER_KERNELS[w]}
+        want = {k: calls if (w, k) in ran else runs if (w, k) == CHAIN
+                else 0 for k in ops.WRAPPER_KERNELS[w]}
         check(device[w] == want,
               f"{tag}: {w} launches on the card {device[w]} != {want} "
-              f"(cycles run + warm-up)")
-        rec = {k: 2 * grid.superstep * captures if (w, k) in ran else 0
+              f"(cycles run + warm-up, a chain a run)")
+        rec = {k: 2 * grid.superstep * captures if (w, k) in ran
+               else runs if (w, k) == CHAIN else 0
                for k in ops.WRAPPER_KERNELS[w]}
         check(host[w] == rec,
               f"{tag}: {w} host launches {host[w]} != {rec} (a warm-up and "
@@ -1103,8 +1110,10 @@ def phase_head_records_timing(device):
                 bound_ms=t["dense_bound_ms"])
 
 
-# the benchmark's radix-16 switch-less cell: 24 lanes of 5,248 terminals
+# the benchmark's radix-16 switch-less cell: 24 lanes of 5,248 terminals,
+# and its jobs' 300 + 1,200 cycles (the key chain's length)
 THREEFRY_SHAPE = (24, 5_248)
+CHAIN_CYCLES = 1_500
 # int32 operations of one Threefry-2x32 hash as `threefry.cu` runs it:
 # the third key word (2), the first injection (2), 20 rounds of add,
 # rotate and xor (60), five injections of three adds (15)
@@ -1118,15 +1127,18 @@ def threefry_work(form, lanes, n) -> tuple[int, int]:
     (bits: the xor; uniform: and the shift, or and subtraction; bernoulli:
     and the compare; randint: two hashes and two xors an element, the
     two subkeys' hashes once a lane, three remainders, a product and two
-    sums)."""
+    sums; chain: n = the cycles, a split of two hashes a cycle, and the
+    next keys written once a lane)."""
     out = {"split": 16, "bits": 8, "uniform": 4, "randint": 4,
-           "bernoulli": 1}[form]
+           "bernoulli": 1, "chain": 16}[form]
     per = {"split": THREEFRY_HASH_OPS, "bits": THREEFRY_HASH_OPS + 1,
            "uniform": THREEFRY_HASH_OPS + 4,
            "bernoulli": THREEFRY_HASH_OPS + 5,
-           "randint": 2 * (THREEFRY_HASH_OPS + 1) + 6}[form]
+           "randint": 2 * (THREEFRY_HASH_OPS + 1) + 6,
+           "chain": 2 * THREEFRY_HASH_OPS}[form]
     lane_ops = 2 * THREEFRY_HASH_OPS if form == "randint" else 0
-    return lanes * (16 + n * out), lanes * (n * per + lane_ops)
+    lane_bytes = 32 if form == "chain" else 16
+    return lanes * (lane_bytes + n * out), lanes * (n * per + lane_ops)
 
 
 def phase_threefry_timing(device):
@@ -1137,9 +1149,14 @@ def phase_threefry_timing(device):
     beside the plain version in a graph and against its bound (the
     larger of bytes at 3.35 TB/s and int32 operations at the card's
     rate).  `ms`, `plain_ms` and `bound_ms` are the randint form's, the
-    draw with the most work a cycle."""
+    draw with the most work a cycle.  Then the key chain of a job
+    (`CHAIN_CYCLES` cycles of the 24 lanes), held to the plain chain and
+    timed alone: the launch on the card (CUDA events), the host's time to
+    issue it (what the span `sweep.key_chain` now reads) and the plain
+    chain on the host, the parent's path."""
     import torch
     from repro_torch import random as jr
+    from repro_torch.core.engine.step import key_chain
     from repro_torch.kernels.netsim import ref
     B, T = THREEFRY_SHAPE
     ks = jr.split(jr.split(jr.PRNGKey(2**31 + 11).to(device), B), 3)
@@ -1179,6 +1196,38 @@ def phase_threefry_timing(device):
               f"{t['bound_ms'] * 1e3:.4f} ({t['bound_by']}: {t['bytes']} B, "
               f"{t['ops']} ops; {100 * t['bound_ms'] / t['graph_ms']:.1f} %)"
               for form, t in out.items()))
+    C = CHAIN_CYCLES
+    keys = jr.split(jr.PRNGKey(2**31 + 11), B)
+    on_card = keys.to(device)
+    for g, w in zip(key_chain(on_card, C), key_chain(keys, C)):
+        check(g.device.type == "cuda" and torch.equal(g.cpu(), w),
+              "threefry chain kernel != the plain chain")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(20):
+        key_chain(on_card, C)
+    issue_ms = (time.perf_counter() - t0) / 20 * 1e3
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    key_chain(keys, C)
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    nbytes, ops_ = threefry_work("chain", B, C)
+    by_bytes = nbytes / H100_BYTES_PER_S * 1e3
+    by_ops = ops_ / H100_INT32_OPS_PER_S * 1e3
+    chain = out["chain"] = dict(
+        ms=cuda_ms(lambda: key_chain(on_card, C), 20), issue_ms=issue_ms,
+        plain_host_ms=plain_ms, bound_ms=max(by_bytes, by_ops),
+        bound_by="bytes" if by_bytes >= by_ops else "operations",
+        bytes=nbytes, ops=ops_)
+    print(f"[threefry] chain {B} lanes x {C} cycles (a job's subkeys), == "
+          f"the plain chain: {chain['ms'] * 1e3:.2f} us a launch on the "
+          f"card, {chain['issue_ms'] * 1e3:.2f} us for the host to issue "
+          f"it, the plain chain on the host {chain['plain_host_ms']:.2f} ms "
+          f"({chain['plain_host_ms'] / chain['ms']:.0f} x); bound "
+          f"{chain['bound_ms'] * 1e3:.4f} us ({chain['bound_by']}: "
+          f"{nbytes} B, {ops_} ops; "
+          f"{100 * chain['bound_ms'] / chain['ms']:.2f} %: serial in "
+          f"cycles, the chain is bound by its latency)")
     head = out["randint"]
     return dict(ms=head["ms"], plain_ms=head["plain_graph_ms"],
                 bound_ms=head["bound_ms"], bound_by=head["bound_by"],
@@ -2618,6 +2667,8 @@ STEP_GATHERS = {"fused": (("head_records", "dense"),
 # and minimal routing: the cycle key's split, the coins, the destinations
 CYCLE_DRAWS = (("threefry", "split"), ("threefry", "uniform"),
                ("threefry", "randint"))
+# and the subkey chain every dispatch or window on the card launches once
+CHAIN = ("threefry", "chain")
 
 
 def step_cells_match_cpu(device):
@@ -2650,11 +2701,12 @@ def step_cells_match_cpu(device):
                            for w in d1}
                     once = {(wrapper, kernel), *STEP_GATHERS.get(impl, ()),
                             *CYCLE_DRAWS}
-                    want_ran = {w: {k: cycles if (w, k) in once else 0
+                    want_ran = {w: {k: cycles if (w, k) in once
+                                    else 1 if (w, k) == CHAIN else 0
                                     for k in ran[w]} for w in ran}
                     check(ran == want_ran,
                           f"{tag}: launches on the card {ran} != one of "
-                          f"each of {sorted(once)} a cycle")
+                          f"each of {sorted(once)} a cycle and one chain")
                     want = graphs._leaves(cpu["out"])
                     got = graphs._leaves(card["out"])
                     check(got.keys() == want.keys(),
@@ -2705,7 +2757,7 @@ def phase_analysis(device, fig11_spec, fig11_captures, serve_captures):
             "cycle_core": {"coop": n, "three_pass": n},
             "head_records": {"dense": n, "picked": n},
             "threefry": {"split": 3 * n, "bits": 0, "uniform": 3 * n,
-                         "randint": 3 * n, "bernoulli": 0}}
+                         "randint": 3 * n, "bernoulli": 0, "chain": 3 * n}}
     check(dev == want and host == want,
           f"analysis step pass launches on the card {dev}, host {host} != "
           f"{want}")
@@ -3434,8 +3486,9 @@ def phase_channel_sharding(device, net):
     # the sharded step's grant is the plain reduction (its minimum exists
     # only after the shards' exchange): no arbitration or gather kernel
     # runs; each shard draws the cycle's bits over all T terminals (the
-    # same draws), one threefry launch a draw
-    draws = {w: {k: shards * cycles if (w, k) in CYCLE_DRAWS else 0
+    # same draws), one threefry launch a draw, after the run's one chain
+    draws = {w: {k: shards * cycles if (w, k) in CYCLE_DRAWS
+                 else 1 if (w, k) == CHAIN else 0
                  for k in ops.WRAPPER_KERNELS[w]} for w in ops.WRAPPERS}
     check(dev == dev2 == draws,
           f"placement (b): netsim launches {dev}, {dev2} in the sharded "
@@ -3965,7 +4018,8 @@ def main(argv=None):
         sum(sum(r["threefry"].values()) for r in main_runs), 0, threefry_t)
     threefry_entry["launches_by_kernel"] = {
         form: sum(r["threefry"][form] for r in main_runs)
-        for form in ("split", "bits", "uniform", "randint", "bernoulli")}
+        for form in ("split", "bits", "uniform", "randint", "bernoulli",
+                     "chain")}
     threefry_entry["forms"] = threefry_t["forms"]
     for entry, wrapper in ((grant_entry, "grant"),
                            (cycle_entry, "cycle_core"),

@@ -23,8 +23,8 @@ REPRO003  a host sync inside the step bodies — the torch meaning of the
           `x.shape[...]`, `x.size(...)`, `x.dim()`, `x.numel()` or `len()`
           reads metadata and is not a sync.  The host-side helpers that
           copy to the host on purpose are out of scope by function name
-          (`HOST_FUNCTIONS`: `stats.finalize`, `step.key_chain`, the
-          sweep's `_host*`, `finish` and `stats_host`).
+          (`HOST_FUNCTIONS`: `stats.finalize`, the sweep's `_host*`,
+          `finish`, `stats_host` and `LaneSession.export`).
           Scope: src/repro_torch/core/engine.
 REPRO004  `sys.path.insert` in an example script: they run as modules
           from the repo root (`python -m examples.torch_quickstart`);
@@ -62,7 +62,7 @@ _CH_TYPE_RANGE = range(0, 5)
 _CH_TYPE_HINTS = ("ch_type", "ch_typ")
 
 # REPRO003: the host-side helpers of the engine tree, by function name
-HOST_FUNCTIONS = ("finalize", "key_chain", "finish", "stats_host")
+HOST_FUNCTIONS = ("finalize", "finish", "stats_host", "export")
 HOST_PREFIX = "_host"
 _SYNC_METHODS = ("item", "cpu", "tolist")
 _CASTS = ("int", "float", "bool")

@@ -8,10 +8,10 @@ index `t`, the warmup cycle and the K subkeys of one superstep.  The
 graph writes its new state back into the static state and advances `t`
 by K at its end, so a run of `cycles` cycles is one load of the static
 inputs and ``cycles / K`` replays, each after one device copy of the
-superstep's subkeys out of the run's host-drawn key chain
-(`step.key_chain`).  On a CUDA device the superstep is captured and
-replayed; on the CPU the same superstep runs eagerly on the same
-buffers.
+superstep's subkeys out of the run's key chain (`step.key_chain`,
+drawn on the first chunk's device).  On a CUDA device the superstep is
+captured and replayed; on the CPU the same superstep runs eagerly on the
+same buffers.
 
 A sweep's one runner (`sweep._advance`) uses them two ways.  A windowed
 `sweep.LaneSession` copies its state into the static buffers, sets `t` to

@@ -23,7 +23,7 @@ from __future__ import annotations
 
 import torch
 
-from ... import random as jr
+from ...kernels.netsim.ops import threefry_chain
 from ...spans import span
 from ..topology import Network
 from ..traffic import as_pattern
@@ -87,23 +87,15 @@ def make_step(net: Network, cfg, pattern, inject_mask=None, *, device=None):
 def key_chain(keys: torch.Tensor, cycles: int) -> tuple:
     """The per-cycle subkeys of the lanes `keys [..., 2]`:
     ``key_{t+1}, sub_t = split(key_t)``, returned as ``(next_keys,
-    subs)``: the key after `cycles` splits, on the CPU, and the subkeys
-    ``[cycles, ..., 2]`` on `keys`' device.  A window of r cycles hands
-    `next_keys` to the next one, so the windows replay the one-shot chain.
-    Drawn on the CPU (same bits as on the card, far fewer device
-    launches); the subkeys move to the device once.  The whole of it is
-    the span `sweep.key_chain`."""
+    subs)``: the key after `cycles` splits and the subkeys ``[cycles, ...,
+    2]``, both on `keys`' device.  A window of r cycles hands `next_keys`
+    to the next one, so the windows replay the one-shot chain.  On a CUDA
+    key the chain is one launch of the netsim library's Threefry kernel
+    (`kernels.netsim.ops.threefry_chain`), issued without waiting; on a
+    CPU key it is the plain chain, one split a cycle.  Both give the same
+    bits.  The whole of it is the span `sweep.key_chain`."""
     with span("sweep.key_chain"):
-        k = keys.cpu()
-        subs = []
-        for _ in range(cycles):
-            s = jr.split(k)
-            k = s[..., 0, :]
-            subs.append(s[..., 1, :])
-        if not subs:
-            return k, torch.empty((0,) + tuple(keys.shape),
-                                  dtype=keys.dtype, device=keys.device)
-        return k, torch.stack(subs).to(keys.device)
+        return threefry_chain(keys, cycles)
 
 
 def run_steps(step, t0: int, subs, reset_at: int, state, rate_pkt, fl):

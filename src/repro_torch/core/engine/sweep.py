@@ -326,7 +326,9 @@ class _Dispatch:
         self.sweep = sweep
         self.lanes, self.fault_sets = lanes, fault_sets
         self.num_lanes = len(lanes)
-        self.keys = keys          # [Bp, 2] on the CPU, ghosts included
+        # [Bp, 2], ghosts included: on the CPU until the first window
+        # moves them to the first chunk's device, where the chain is drawn
+        self.keys = keys
         self.cycle = cycle        # the absolute cycle the chunks are at
         self.total = sweep.cfg.warmup + sweep.cfg.measure
         self.window = window or self.total
@@ -368,13 +370,15 @@ def _advance(chunks: list, keys, t: int, real: int, reset_at: int, K: int,
              loop: str, shards: int = 1, keep: bool = True) -> tuple:
     """Advance a dispatch's chunks `real` cycles from absolute cycle `t`
     (`keys` ``[Bp, 2]`` the lanes' keys there): one key chain for every
-    chunk, each chunk issued before any is read.  Lane rows of channel
-    shards run `_run_sharded`; a chunk runs `run_steps` on the eager loop,
-    else its K graph and a K = 1 graph for a tail.  `keep` (a window)
+    chunk, drawn on the first chunk's device (the keys move there once,
+    at a dispatch's first window), each chunk issued before any is read.
+    Lane rows of channel shards run `_run_sharded`; a chunk runs
+    `run_steps` on the eager loop, else its K graph and a K = 1 graph for
+    a tail.  `keep` (a window)
     copies each graph's state back out; without it (a one-shot run) only
     the counters leave.  Returns (the keys after `real` cycles, each
     chunk's counters, graphs captured here, their capture seconds)."""
-    keys, subs = key_chain(keys, real)
+    keys, subs = key_chain(keys.to(chunks[0].device), real)
     if shards > 1:
         return keys, _run_sharded(chunks, t, reset_at, subs), 0, 0.0
     stats, made, capture_s = [], 0, 0.0
@@ -500,10 +504,11 @@ class LaneSession(_Dispatch):
 
     The session holds its chunks' `SimState`s on their devices (one chunk
     unless its lanes are spread), the lanes' keys (``[Bp, 2]`` int64 words
-    on the CPU, where the chain is drawn) and the absolute cycle between
-    windows.  `advance` runs one window's real cycles (see the module
-    docstring) on every chunk; chained windows replay the one-shot key
-    chain, so `finish()` equals `run_lanes` on the same lane triples.
+    on the first chunk's device, where the chain is drawn, from the first
+    window on) and the absolute cycle between windows.  `advance` runs
+    one window's real cycles (see the module docstring) on every chunk;
+    chained windows replay the one-shot key chain, so `finish()` equals
+    `run_lanes` on the same lane triples.
     `export()` snapshots the dynamic state to host numpy arrays, the
     chunks joined; `start_lanes(..., restore=snapshot)` resumes from it
     bit for bit, since the state, the keys and the cycle are the whole of
@@ -536,7 +541,8 @@ class LaneSession(_Dispatch):
         """The session's dynamic state as host arrays: ``{"state":
         SimState of numpy, "keys": [Bp, 2] int64, "cycle": int}``."""
         return dict(state=_host_states([ch.state for ch in self.chunks]),
-                    keys=self.keys.numpy().copy(), cycle=int(self.cycle))
+                    keys=self.keys.cpu().numpy().copy(),
+                    cycle=int(self.cycle))
 
     def finish(self) -> LaneRun:
         """Per-lane `SimResult`s once the budget is spent (`wall_s` is not

@@ -28,12 +28,27 @@
 // bytes nor operations but by its own launch.  No allocation, no
 // synchronisation: one launch on the caller's stream, which a CUDA graph
 // captures.  The kernel adds one to `launches` on the device.
+//
+// A sixth form, `threefry_chain`, draws a dispatch's per-cycle subkey
+// chain, key_{c+1}, sub_c = split(key_c), in one launch:
+//
+//   chain      subs[c, l, :] = threefry(k_c, (0, 1)), k_{c+1} =
+//              threefry(k_c, (0, 0)) for c < cycles, from k_0 = key_l;
+//              next_keys[l, :] = k_cycles
+//
+// one thread a lane, its two key words in registers.  The chain is
+// serial in cycles: each cycle's two hashes are independent of each
+// other, but the next cycle's key waits for the first, so a launch is
+// bound by the latency of ~70 dependent int32 operations a cycle, not by
+// its bytes (16 a subkey) or operations.  One warp holds the benchmark's
+// 24 lanes; more lanes take more warps, never more cycles.
 #include <cstdint>
 #include <cuda_runtime.h>
 
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kChainThreads = 32;
 constexpr uint32_t kParity = 0x1BD11BDAu;
 
 enum Form { kSplit = 0, kBits = 1, kUniform = 2, kRandint = 3,
@@ -118,6 +133,33 @@ __global__ void __launch_bounds__(kThreads) threefry_draw(
   }
 }
 
+// The subkey chain of `cycles` splits of each lane's key (the `chain`
+// form above): subs [cycles, lanes] and next_keys [lanes] of 16-byte
+// (two int64 word) records, contiguous.
+__global__ void __launch_bounds__(kChainThreads) threefry_chain(
+    const long long* __restrict__ key, long long ks_lane, long long ks_word,
+    unsigned lanes, unsigned cycles, longlong2* __restrict__ next_keys,
+    longlong2* __restrict__ subs, unsigned long long* __restrict__ launches) {
+  if (blockIdx.x == 0 && threadIdx.x == 0) atomicAdd(launches, 1ULL);
+  const unsigned lane = blockIdx.x * kChainThreads + threadIdx.x;
+  if (lane >= lanes) return;
+  const long long* kp = key + static_cast<long long>(lane) * ks_lane;
+  uint32_t k0 = static_cast<uint32_t>(__ldg(kp));
+  uint32_t k1 = static_cast<uint32_t>(__ldg(kp + ks_word));
+  longlong2* out = subs + lane;
+  for (unsigned c = 0; c < cycles; ++c) {
+    // split(k): element 0 is the next key, element 1 the cycle's subkey
+    const uint2 s0 = threefry2x32(k0, k1, 0u, 0u);
+    const uint2 s1 = threefry2x32(k0, k1, 0u, 1u);
+    out[static_cast<size_t>(c) * lanes] = make_longlong2(
+        static_cast<long long>(s1.x), static_cast<long long>(s1.y));
+    k0 = s0.x;
+    k1 = s0.y;
+  }
+  next_keys[lane] = make_longlong2(static_cast<long long>(k0),
+                                   static_cast<long long>(k1));
+}
+
 }  // namespace
 
 // One draw of `form` (0 split, 1 bits, 2 uniform, 3 randint, 4 bernoulli)
@@ -166,5 +208,26 @@ extern "C" int netsim_threefry(int form, const long long* key,
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The subkey chain of `lanes` (above 0) keys over `cycles` (0 or more)
+// splits: lane l's key words at key[l * ks_lane] and key[l * ks_lane +
+// ks_word] (int64 elements); writes the contiguous int64 subs [cycles,
+// lanes, 2] and next_keys [lanes, 2] (16-byte aligned).  Returns the
+// launch's CUDA error.
+extern "C" int netsim_threefry_chain(const long long* key,
+                                     long long ks_lane, long long ks_word,
+                                     int lanes, int cycles,
+                                     long long* next_keys, long long* subs,
+                                     unsigned long long* launches,
+                                     void* stream) {
+  const unsigned ul = static_cast<unsigned>(lanes);
+  const unsigned blocks = (ul + kChainThreads - 1) / kChainThreads;
+  threefry_chain<<<blocks, kChainThreads, 0,
+                   static_cast<cudaStream_t>(stream)>>>(
+      key, ks_lane, ks_word, ul, static_cast<unsigned>(cycles),
+      reinterpret_cast<longlong2*>(next_keys),
+      reinterpret_cast<longlong2*>(subs), launches);
   return static_cast<int>(cudaGetLastError());
 }

@@ -39,8 +39,11 @@ are counted as the arbitration wrappers' are, under the one wrapper name
 and `threefry_bernoulli` (``csrc/threefry.cu``) are the draws of the
 port's PRNG, `repro_torch.random`: on a CUDA key one launch a draw, one
 thread an output element; on a CPU key the plain versions in `ref`, the
-same bits.  They are counted under the wrapper name `threefry`, one
-"kernel" a form.
+same bits.  `threefry_chain` draws the per-cycle subkey chain of a
+dispatch (`engine.step.key_chain`): on a CUDA key one launch for all its
+cycles, one thread a lane; on a CPU key the plain chain.  They are counted
+under the wrapper name `threefry`, one "kernel" a form, the chain the
+form "chain".
 """
 from __future__ import annotations
 
@@ -56,8 +59,8 @@ from ..build import load_library
 from .ref import (check_r2, cycle_core_ref, grant_ref,
                   head_records_dense_ref, head_records_picked_ref,
                   randint_span, threefry_bernoulli_ref, threefry_bits_ref,
-                  threefry_randint_ref, threefry_split_ref,
-                  threefry_uniform_ref)
+                  threefry_chain_ref, threefry_randint_ref,
+                  threefry_split_ref, threefry_uniform_ref)
 
 LIBRARY = "netsim"
 SOURCES = [Path(__file__).parent / "csrc" / name
@@ -66,8 +69,10 @@ SOURCES = [Path(__file__).parent / "csrc" / name
                         "threefry.cu")]
 KERNELS = ("coop", "three_pass")
 HEAD_FORMS = ("dense", "picked")
-# the draws of `threefry.cu`, in the order of its `form` argument
-THREEFRY_FORMS = ("split", "bits", "uniform", "randint", "bernoulli")
+# the draws of `threefry.cu`: the first five in the order of
+# `netsim_threefry`'s `form` argument, then `netsim_threefry_chain`'s
+THREEFRY_FORMS = ("split", "bits", "uniform", "randint", "bernoulli",
+                  "chain")
 # int32 fields a buffer record: the state's NUM_FUSED_FIELDS
 RECORD_FIELDS = 8
 # the three-pass kernels' grid puts the lanes on its y dimension
@@ -89,6 +94,7 @@ _ARGTYPES = {
                                    _P, _P],
     "netsim_threefry": [_I, _P, _L, _L, _I, _I, _P, _U, _U, _U,
                         ctypes.c_float, _P, _P],
+    "netsim_threefry_chain": [_P, _L, _L, _I, _I, _P, _P, _P, _P],
 }
 # library name -> {function name: the bound ctypes function}, bound once
 _BOUND: dict = {}
@@ -505,8 +511,8 @@ head_records = SimpleNamespace(launches=0,
 
 def _threefry_key(key):
     """`key` checked as keys ``[..., 2]`` of int64 words on a device the
-    draws run on; returns its device.  (The host key chain checks 1,500
-    keys a job: ~2 us each beside a split's ~1.2 ms on the CPU.)"""
+    draws run on; returns its device.  (A cycle's draws check 3 or 4 keys,
+    ~2 us each; the key chain checks its keys once, not once a cycle.)"""
     if key.dtype != torch.int64 or key.dim() == 0 or key.shape[-1] != 2:
         raise ValueError(f"threefry: the key must be int64 of shape "
                          f"[..., 2], got {key.dtype} {tuple(key.shape)}")
@@ -603,6 +609,53 @@ def threefry_bernoulli(key, p: float, shape):
         return threefry_bernoulli_ref(key, p, shape)
     shape = _shape(shape)
     return _draw("bernoulli", key, shape, shape, torch.bool, p=float(p))
+
+
+def _chain(keys, cycles: int) -> tuple:
+    """Launch the subkey chain of the CUDA `keys` over `cycles` cycles
+    into new tensors, on the current stream, and count it as the form
+    "chain" (see `_draw`)."""
+    if not _on_current_device(keys.device):
+        with torch.cuda.device(keys.device):
+            return _chain(keys, cycles)
+    lanes = tuple(keys.shape[:-1])
+    n = math.prod(lanes)
+    if max(n, cycles) >= 2**31:
+        raise ValueError(f"threefry: {n} lanes x {cycles} cycles exceed the "
+                         f"kernel's 32-bit lane and cycle counts")
+    next_keys = torch.empty(lanes + (2,), dtype=torch.int64,
+                            device=keys.device)
+    subs = torch.empty((cycles,) + lanes + (2,), dtype=torch.int64,
+                       device=keys.device)
+    if n == 0:
+        return next_keys, subs
+    flat = keys.reshape(-1, 2)
+    rc = _fn("netsim_threefry_chain")(
+        flat.data_ptr(), flat.stride(0), flat.stride(1), n, cycles,
+        next_keys.data_ptr(), subs.data_ptr(),
+        _launch_slot(keys.device, "threefry", "chain"), _stream())
+    if rc != 0:
+        raise RuntimeError(f"netsim threefry chain kernel launch failed: "
+                           f"CUDA error {rc}")
+    threefry.launches += 1
+    threefry.launches_by_kernel["chain"] += 1
+    return next_keys, subs
+
+
+def threefry_chain(keys, cycles: int) -> tuple:
+    """The per-cycle subkey chain of the lanes `keys [..., 2]` (int64):
+    ``key_{c+1}, sub_c = split(key_c)`` for ``c < cycles``, as
+    ``(next_keys [..., 2], subs [cycles, ..., 2])`` on the keys' device:
+    the same result as `ref.threefry_chain_ref`.  On a CUDA key one
+    launch, one thread a lane looping over the cycles; a negative
+    `cycles` raises ValueError on every device."""
+    cycles = int(cycles)
+    if cycles < 0:
+        raise ValueError(f"threefry: the chain's cycle count must be 0 or "
+                         f"more, got {cycles}")
+    if _threefry_key(keys).type == "cpu":
+        return threefry_chain_ref(keys, cycles)
+    return _chain(keys, cycles)
 
 
 # the host counts of the draws, by form, under the wrapper name that

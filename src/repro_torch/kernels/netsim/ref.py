@@ -13,7 +13,8 @@ the fused step's record gathers as `take` / `lane_take` expressions.
 `threefry_split_ref`, `threefry_bits_ref`, `threefry_uniform_ref`,
 `threefry_randint_ref` and `threefry_bernoulli_ref` are the draws of the
 port's PRNG (`repro_torch.random`), `threefry2x32` run as int64 tensor
-operations masked to 32 bits.
+operations masked to 32 bits; `threefry_chain_ref` is a dispatch's
+per-cycle subkey chain, one `threefry_split_ref` a cycle.
 """
 from __future__ import annotations
 
@@ -210,6 +211,21 @@ def threefry_split_ref(key: torch.Tensor, num: int) -> torch.Tensor:
     """`jax.random.split(key, num)`: keys ``[..., 2]`` -> ``[..., num, 2]``."""
     b1, b2 = _hash(key, (num,))
     return torch.stack([b1, b2], dim=-1)
+
+
+def threefry_chain_ref(keys: torch.Tensor, cycles: int) -> tuple:
+    """The per-cycle subkey chain of the lanes `keys [..., 2]`:
+    ``key_{c+1}, sub_c = split(key_c)`` for ``c < cycles``, as
+    ``(next_keys [..., 2], subs [cycles, ..., 2])``."""
+    k = keys
+    subs = []
+    for _ in range(cycles):
+        s = threefry_split_ref(k, 2)
+        k = s[..., 0, :]
+        subs.append(s[..., 1, :])
+    if not subs:
+        return k, keys.new_empty((0,) + tuple(keys.shape))
+    return k, torch.stack(subs)
 
 
 def threefry_bits_ref(key: torch.Tensor, shape: tuple) -> torch.Tensor:

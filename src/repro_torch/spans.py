@@ -25,8 +25,9 @@ issuing the work, not the device's time doing it.  On CUDA a span around
 launched kernels ends while they still run; the kernels' own time is the
 profiler's attribution of them to the range.
 
-The names in use: `sweep.key_chain` (the host's subkey chain of a
-dispatch or window, `engine.step.key_chain`), `graph.copy` (a
+The names in use: `sweep.key_chain` (the subkey chain of a dispatch or
+window, `engine.step.key_chain`: on a CUDA key the host's time issuing
+its one launch, on a CPU key the host drawing it), `graph.copy` (a
 `CycleGraph`'s inputs copied in and its results copied out),
 `graph.replays` (a run's or window's replay loop) and the cycle step's
 phases `step.inject`, `step.requests`, `step.grant`, `step.commit`

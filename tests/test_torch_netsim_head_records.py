@@ -129,7 +129,7 @@ def test_cpu_calls_count_no_launch():
 def test_launch_counts_have_a_slot_for_each_form(monkeypatch):
     """`device_launches` lists `head_records` by form, and each (wrapper,
     kernel) adds to a slot of its own in the device's count table: 2 + 2
-    arbitration kernels, 2 gathers, 5 draws."""
+    arbitration kernels, 2 gathers, 5 draws and the key chain."""
     dev = torch.device("cpu")
     monkeypatch.setattr(torch.cuda, "is_current_stream_capturing",
                         lambda: False)
@@ -140,11 +140,11 @@ def test_launch_counts_have_a_slot_for_each_form(monkeypatch):
              for w in netsim_ops.WRAPPERS
              for k in netsim_ops.WRAPPER_KERNELS[w]}
     table = netsim_ops._DEVICE_LAUNCHES[dev]
-    assert len(set(slots.values())) == len(slots) == 11
+    assert len(set(slots.values())) == len(slots) == 12
     for n, ((w, k), addr) in enumerate(slots.items()):
         table.view(-1)[(addr - table.data_ptr()) // 8] = n + 1
     got = netsim_ops.device_launches(dev)
-    assert [got[w][k] for w, k in slots] == list(range(1, 12))
+    assert [got[w][k] for w, k in slots] == list(range(1, 13))
 
 
 @pytest.mark.parametrize("impl,dense,picked", [("fused", 1, 1),

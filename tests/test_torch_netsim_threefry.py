@@ -1,12 +1,15 @@
 """The PRNG's Threefry kernel, `netsim.ops.threefry_*`, behind every draw
-of `repro_torch.random`: on the CPU, that a CPU key runs the plain
+of `repro_torch.random` and the sweep's per-cycle key chain
+(`engine.step.key_chain`): on the CPU, that a CPU key runs the plain
 versions and never loads the kernel library, that the wrappers refuse a
-key they cannot read, the launch counts' layout, and that each draw of
-a cycle step is one wrapper call (3 a cycle under `min`, 4 under UGAL);
-on the card (marker `cuda`) every form bit for bit against the plain
-versions on the CPU, at the shapes, spans and keys of its callers (24
-lanes of the benchmark's 5,248 terminals, strided views of a `split`),
-one launch a draw, and inside a captured CUDA graph.  The plain versions
+key (or a chain's cycle count) they cannot read, the launch counts'
+layout, that each draw of a cycle step is one wrapper call (3 a cycle
+under `min`, 4 under UGAL) and a dispatch's chain one; on the card
+(marker `cuda`) every form bit for bit against the plain versions on the
+CPU, at the shapes, spans and keys of its callers (24 lanes of the
+benchmark's 5,248 terminals and 1,500 cycles, strided views of a
+`split`), one launch a draw or chain, inside a captured CUDA graph, and a
+session's windows chaining their keys on the card.  The plain versions
 are held to `jax.random` in `tests/test_torch_random.py`, at the same
 shapes and spans.
 
@@ -15,12 +18,17 @@ tests run on the machine with the card:
 
     PYTHONPATH=src python -m pytest -q --noconftest -m cuda tests/test_torch_netsim_threefry.py
 """
+import dataclasses
+
+import numpy as np
 import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch import random as jr
+from repro_torch import spans
 from repro_torch.core.engine import build_lane, make_state, make_step
-from repro_torch.core.engine.step import superstep_body
+from repro_torch.core.engine.step import key_chain, superstep_body
+from repro_torch.core.engine.sweep import BatchedSweep
 from repro_torch.core.routing import share_lanes
 from repro_torch.core.simulator import SimConfig
 from repro_torch.exp.spec import TopologySpec, TrafficSpec
@@ -58,6 +66,10 @@ def _every_draw(key):
             jr.bernoulli(key, 0.5, (9,))]
 
 
+# the forms `_every_draw` launches once each: all but the key chain
+DRAW_FORMS = tuple(f for f in netsim_ops.THREEFRY_FORMS if f != "chain")
+
+
 def test_a_cpu_key_never_loads_the_library(monkeypatch):
     """Every draw of a CPU key (one key, lanes, strided views) runs the
     plain versions: the kernel library is never asked for."""
@@ -72,6 +84,8 @@ def test_a_cpu_key_never_loads_the_library(monkeypatch):
                 netsim_ref.threefry_uniform_ref(ks[..., 1, :], (3, 5)),
                 netsim_ref.threefry_randint_ref(ks[..., 2, :], (9,), -3, 41),
                 netsim_ref.threefry_bernoulli_ref(key, 0.5, (9,))]
+        got += list(key_chain(key, 3))
+        want += list(netsim_ref.threefry_chain_ref(key, 3))
         for g, w in zip(got, want):
             assert g.dtype == w.dtype and torch.equal(g, w)
 
@@ -89,6 +103,7 @@ WRAPPER_CALLS = {
     "uniform": lambda k: netsim_ops.threefry_uniform(k, (4,)),
     "randint": lambda k: netsim_ops.threefry_randint(k, (4,), 0, 9),
     "bernoulli": lambda k: netsim_ops.threefry_bernoulli(k, 0.5, (4,)),
+    "chain": lambda k: netsim_ops.threefry_chain(k, 3),
 }
 
 
@@ -103,6 +118,18 @@ def test_wrappers_refuse_a_key_they_cannot_read(monkeypatch, form, bad):
         WRAPPER_CALLS[form](BAD_KEYS[bad]())
 
 
+@pytest.mark.parametrize("cycles", [-1, -1500])
+def test_chain_refuses_a_negative_cycle_count(monkeypatch, cycles):
+    """A chain of fewer than 0 cycles: ValueError on every device, before
+    the key is read or the library asked for."""
+    monkeypatch.setattr(netsim_ops, "library", lambda *a, **k: 1 / 0)
+    monkeypatch.setattr(netsim_ops, "_BOUND", {})
+    monkeypatch.setattr(netsim_ops, "_threefry_key",
+                        lambda key: torch.device("cuda"))
+    with pytest.raises(ValueError, match="cycle count"):
+        netsim_ops.threefry_chain(_keys(2), cycles)
+
+
 @pytest.mark.parametrize("lo,hi", [(0, 2**31), (-2**31 - 1, 0)])
 def test_randint_refuses_bounds_outside_int32(lo, hi):
     with pytest.raises(ValueError, match="int32"):
@@ -114,7 +141,7 @@ def test_launch_count_layout():
     device that has launched nothing, and host counts alike."""
     assert netsim_ops.WRAPPERS[-1] == "threefry"
     assert netsim_ops.WRAPPER_KERNELS["threefry"] == (
-        "split", "bits", "uniform", "randint", "bernoulli")
+        "split", "bits", "uniform", "randint", "bernoulli", "chain")
     counts = netsim_ops.device_launches(torch.device("cuda", 99))
     assert counts["threefry"] == dict.fromkeys(
         netsim_ops.THREEFRY_FORMS, 0)
@@ -174,6 +201,43 @@ def test_a_cycle_is_one_launch_a_draw(monkeypatch, step_impl):
         "split", "uniform", "randint"]
     assert _step_draws(monkeypatch, "ugal", "worst_case", step_impl) == [
         "split", "uniform", "randint", "randint"]
+
+
+def test_key_chain_on_a_cuda_key_is_one_chain_launch(monkeypatch):
+    """`step.key_chain` on a key that reports a CUDA device makes exactly
+    one `chain` call (the launch, computed here by the plain chain) and no
+    draw, inside one `sweep.key_chain` span, with the plain chain's bits."""
+    forms = []
+
+    def chain(keys, cycles):
+        forms.append("chain")
+        return netsim_ref.threefry_chain_ref(keys, cycles)
+
+    def draw(form, *args, **kwargs):
+        forms.append(form)
+        raise AssertionError(f"the key chain drew a {form}")
+
+    keys = _keys(3)
+    want = key_chain(keys, 7)
+    monkeypatch.setattr(netsim_ops, "_threefry_key",
+                        lambda key: torch.device("cuda"))
+    monkeypatch.setattr(netsim_ops, "_chain", chain)
+    monkeypatch.setattr(netsim_ops, "_draw", draw)
+    before = spans.totals().get("sweep.key_chain", (0, 0.0))[0]
+    got = key_chain(keys, 7)
+    assert forms == ["chain"]
+    assert spans.totals()["sweep.key_chain"][0] == before + 1
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("lanes", [1, LANES])
+def test_key_chain_of_no_cycles(lanes):
+    """No cycles: the keys themselves and an empty ``[0, B, 2]``."""
+    keys = _keys(lanes)
+    next_keys, subs = key_chain(keys, 0)
+    assert torch.equal(next_keys, keys)
+    assert subs.dtype == torch.int64 and subs.shape == (0, lanes, 2)
 
 
 # ---- on the card -------------------------------------------------------
@@ -245,7 +309,7 @@ def test_one_launch_a_draw(cuda):
     jr.uniform(key, (0,))
     torch.cuda.synchronize()
     d1 = netsim_ops.device_launches()["threefry"]
-    want = dict.fromkeys(netsim_ops.THREEFRY_FORMS, 1)
+    want = dict(dict.fromkeys(DRAW_FORMS, 1), chain=0)
     assert {k: d1[k] - d0[k] for k in d1} == want
     assert {k: host[k] - h0[k] for k in host} == want
 
@@ -272,5 +336,94 @@ def test_draws_in_a_cuda_graph_equal_eager(cuda):
             assert torch.equal(got, want), f"replay {rep}"
     d1 = netsim_ops.device_launches()["threefry"]
     # three replays and three eager draws a form
-    assert {k: d1[k] - d0[k] for k in d1} == dict.fromkeys(
-        netsim_ops.THREEFRY_FORMS, 6)
+    assert {k: d1[k] - d0[k] for k in d1} == dict(
+        dict.fromkeys(DRAW_FORMS, 6), chain=0)
+
+
+# the chain's keys: the benchmark's large seeds, one lane alone, and words
+# at 2^32 - 1
+CHAIN_KEYS = {
+    "24 lanes": lambda: _keys(),
+    "one key": lambda: jr.PRNGKey(2**31 + 5),
+    "one lane": lambda: _keys(1),
+    "top words": lambda: torch.tensor([[2**32 - 1, 2**32 - 1],
+                                       [0, 2**32 - 1], [2**32 - 1, 0]]),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cycles", [0, 1, 1_500])
+@pytest.mark.parametrize("keys", list(CHAIN_KEYS))
+def test_chain_on_the_card(cuda, keys, cycles):
+    """The chain of CUDA keys equals the plain chain on the CPU bit for
+    bit, the next keys and every subkey, both on the card."""
+    key = CHAIN_KEYS[keys]()
+    got = key_chain(key.to(cuda), cycles)
+    want = key_chain(key, cycles)
+    for g, w in zip(got, want):
+        assert g.device.type == "cuda"
+        _same(g, w)
+
+
+@pytest.mark.cuda
+def test_chain_of_strided_keys_on_the_card(cuda):
+    """A strided view of a `split` output (and keys with two lane
+    dimensions) is read through its strides."""
+    ks = jr.split(_keys().to(cuda), 3)[:, 1]
+    assert not ks.is_contiguous()
+    for key in (ks, ks.reshape(4, 6, 2).transpose(0, 1)):
+        for g, w in zip(key_chain(key, 300),
+                        key_chain(key.cpu().contiguous(), 300)):
+            _same(g, w)
+
+
+@pytest.mark.cuda
+def test_one_launch_a_chain(cuda):
+    """A chain of any length is one launch of the form `chain`, counted
+    on the host and by the kernel on the device."""
+    key = _keys().to(cuda)
+    host = netsim_ops.threefry.launches_by_kernel
+    h0 = dict(host)
+    d0 = netsim_ops.device_launches()["threefry"]
+    key_chain(key, 1_500)
+    torch.cuda.synchronize()
+    d1 = netsim_ops.device_launches()["threefry"]
+    want = dict(dict.fromkeys(DRAW_FORMS, 0), chain=1)
+    assert {k: d1[k] - d0[k] for k in d1} == want
+    assert {k: host[k] - h0[k] for k in host} == want
+
+
+@pytest.mark.cuda
+def test_session_windows_chain_their_keys_on_the_card(cuda):
+    """A session of 100-cycle windows draws one chain a window on the card
+    and keeps its keys there; it ends on the keys of the whole budget's
+    chain and the counters of a one-shot run (one chain); its `export()`
+    holds host int64 keys, and a restore from it ends the same."""
+    net = TopologySpec.switchless(a=2, b=2, m=2, n=4, noc=2, g=3).build()
+    cfg = SimConfig(warmup=100, measure=200, step_impl="fused")
+    sw = BatchedSweep(net, cfg, TrafficSpec("uniform").resolve(net),
+                      device=cuda)
+    lanes = [(r, 2**31 + s, None) for r in (0.4, 1.2) for s in (3, 4)]
+    d0 = netsim_ops.device_launches()["threefry"]["chain"]
+    want = [dataclasses.asdict(r) for r in sw.run_lanes(lanes).results]
+    d1 = netsim_ops.device_launches()["threefry"]["chain"]
+    assert d1 - d0 == 1
+    keys = torch.stack([jr.PRNGKey(s) for _, s, _ in lanes])
+    final = key_chain(keys, 300)[0]
+    ses = sw.start_lanes(lanes, window=100)
+    snap = None
+    while not ses.done():
+        ses.advance()
+        assert ses.keys.device.type == "cuda"
+        if ses.cycle == 100:
+            snap = ses.export()
+    assert netsim_ops.device_launches()["threefry"]["chain"] - d1 == 3
+    _same(ses.keys, final)
+    assert [dataclasses.asdict(r) for r in ses.finish().results] == want
+    assert snap["keys"].dtype == np.int64 and snap["keys"].shape == (4, 2)
+    assert torch.equal(torch.as_tensor(snap["keys"]), key_chain(keys, 100)[0])
+    again = sw.start_lanes(lanes, window=100, restore=snap)
+    while not again.done():
+        again.advance()
+    _same(again.keys, final)
+    assert [dataclasses.asdict(r) for r in again.finish().results] == want
